@@ -6,7 +6,11 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the CUDA decode kernel from ``music_tpu_torch/csrc/`` (nvcc);
+2. build both CUDA kernels from ``music_tpu_torch/csrc/`` (one nvcc per
+   source, started together);
+
+WaveNet (kernel ``wavenet_decode``):
+
 3. the kernel against its plain PyTorch version on the card at a tiny
    config: f32 argmax with 1 and 11 streams, bf16 with 16 streams,
    categorical (both sides draw the same Philox numbers); exact token
@@ -18,7 +22,24 @@ Phases (any failure raises and the script exits non-zero):
    steps against the plain model on the card;
 5. samples/s of the kernel (2048 steps) and of its plain version (256
    steps) at the main path's shapes, timed with CUDA events;
-6. a JSON line describing each kernel, then the device JSON as the last line.
+
+WaveNet autoencoder (kernel ``wavenet_ae_decode``):
+
+6. the kernel against its plain version at a tiny config with per-stream
+   clocks (``pos_offset``) and frames that clamp at the last one: f32 with
+   1 and 11 streams, bf16 with 16 streams; exact token matches, plus a
+   tie-aware check against the plain f32 model teacher-forced;
+7. the reconstruction path at the shipped width
+   (``params/wavenet_autoencoder``: 40 blocks, Cs=512, W=512, pool=512,
+   Q=256) through the CLI on a checkpoint of seeded random weights: one
+   1.0 s source clip, then a directory of 32 clips, 0.25 s of output each,
+   f32; launch counts, wav lengths and codes checked, and a tie-aware check
+   of the first 512 steps against the plain f32 model;
+8. samples/s of the kernel and its plain version for 1 and 32 streams;
+
+9. a JSON line describing each kernel (times in ms per decode step, with
+   the least time the card could take for the same step, ``bound_ms``),
+   then the device JSON as the last line.
 
 It imports nothing of JAX.  Float32 matmuls in the plain versions run in
 full float32 (TF32 off, see ``music_tpu_torch.ops.conv.full_fp32``).
@@ -41,7 +62,18 @@ TOL_F32 = 1e-4   # logits are O(0.1); kernel and plain differ in summation order
 # shipped width and 3.5e-4 at the tiny config (H100); a token's deficit is
 # at most twice the logit error, so 2e-3 leaves a factor 2.2 over that bound
 TOL_BF16 = 2e-3
+# the same for the autoencoder at its tiny config: max logit error measured
+# 1.49e-3 on the H100 and up to 1.85e-3 on the CPU
+# (tests/test_torch_wavenet_ae_decode.py; the conditioning biases are bf16
+# too), so twice 2e-3, times 2
+TOL_AE_BF16 = 8e-3
 TIMED_STEPS, PLAIN_STEPS = 2048, 256
+KERNELS = ("wavenet_decode", "wavenet_ae_decode")
+# one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM bytes/s, and
+# FLOP/s of the units the kernels' float32 FMAs run on, by weight dtype
+# (bf16 operands could run on the tensor cores)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def fail(msg: str):
@@ -88,8 +120,27 @@ def pcm_codes(wav_path: Path, q: int):
     return codes
 
 
+def step_macs(L, Cr, Cd, Cs, Q) -> int:
+    """Multiply-adds of one decode step of one stream: per layer the
+    filter/gate product [tap | x] @ [2Cr, 2Cd] and the dense product, then
+    skip, post1 and post2."""
+    return L * (2 * Cr * 2 * Cd + Cd * Cr) + L * Cd * Cs + Cs * Cs + Cs * Q
+
+
+def bound(step_bytes: float, step_flops: float, dtype_name: str) -> tuple[float, str]:
+    """The least time (ms) the card could take for one decode step, and
+    which term bounds it."""
+    t_bytes = step_bytes / PEAK_BYTES_S
+    t_ops = step_flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> None:
-    if not (ROOT / "music_tpu_torch").is_dir() or not (ROOT / "music_tpu").is_dir():
+    if not (ROOT / "music_tpu_torch").is_dir():
         fail(f"run from the root of a checkout (no music_tpu_torch/ beside {__file__})")
     import torch
 
@@ -100,12 +151,19 @@ def main() -> None:
 
     from music_tpu_torch import cli
     from music_tpu_torch.core import checkpoint
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.data import wavio
     from music_tpu_torch.generate.wavenet_generate import stream_tiling
     from music_tpu_torch.kernels import _build
+    from music_tpu_torch.kernels import wavenet_ae_decode as aedec
     from music_tpu_torch.kernels import wavenet_decode as dec
     from music_tpu_torch.models import wavenet as wn
+    from music_tpu_torch.models import wavenet_ae as ae
+    from music_tpu_torch.ops.conv import full_fp32
+    from music_tpu_torch.ops.mulaw import mu_law_encode
     from music_tpu_torch.utils.parity import (
-        reference_scores, teacher_forced_scores, tie_aware_check,
+        ae_reference_scores, ae_teacher_forced_scores, reference_scores,
+        teacher_forced_scores, tie_aware_check,
     )
 
     dev = torch.device("cuda")
@@ -115,27 +173,32 @@ def main() -> None:
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build
+    # -- 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
+    _build.build(list(KERNELS))
     dec._library()
-    lib_path = _build.library_path("wavenet_decode")
-    built = _build.BUILD_SECONDS.get("wavenet_decode")
-    print(f"[2] built {lib_path.name} in {time.perf_counter() - t0:.1f} s "
-          f"({'nvcc ran' if built is not None else 'reused an existing build'})")
-    log = lib_path.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print("[2] ptxas:", line.strip())
+    aedec._library()
+    print(f"[2] built {len(KERNELS)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        lib_path = _build.library_path(name)
+        built = _build.BUILD_SECONDS.get(name)
+        print(f"[2] {lib_path.name}: "
+              f"{f'nvcc {built:.1f} s' if built is not None else 'reused an existing build'}")
+        log = lib_path.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "Used" in line or "spill" in line:
+                    print("[2] ptxas:", line.strip())
     sys.stdout.flush()
 
-    worst_deficit = 0.0  # vs the plain version at the kernel's own precision
+    worst_deficit = dict.fromkeys(KERNELS, 0.0)  # vs the plain version at its precision
 
-    def check(name, tokens, scores_fn, tol, *, same_precision=True):
-        nonlocal worst_deficit
+    def check(name, tokens, scores_fn, tol, *, kernel=None):
+        """Tie-aware check; with ``kernel``, a check at that kernel's own
+        precision, whose deficit counts into its ``max_abs_err``."""
         report = tie_aware_check(tokens, scores_fn, tol)
-        if same_precision:
-            worst_deficit = max(worst_deficit, -report["min_margin"])
+        if kernel is not None:
+            worst_deficit[kernel] = max(worst_deficit[kernel], -report["min_margin"])
         print(f"    {name}: tie-aware {report}", flush=True)
         if not report["ok"]:
             fail(f"{name}: a token scores {-report['min_margin']:.3g} below the plain "
@@ -145,14 +208,34 @@ def main() -> None:
         """The f32 model's teacher-forced scores (+ the decode's Philox noise)."""
         return lambda t: teacher_forced_scores(params, prime, t.to(dev), cfg, **sampling)
 
-    def bf16_logit_error(name, cfg, params, prime, inputs, tokens):
-        """Largest |bf16 plain logit - f32 model logit| along ``tokens``; a
-        token's tie-aware deficit against the f32 model is at most twice it."""
-        plain = reference_scores(inputs, tokens, cfg, dtype=torch.bfloat16)
-        err = float((plain - teacher_forced_scores(params, prime, tokens, cfg)[:, 1:]).abs().max())
+    def logit_error_check(name, plain, f32, tol):
+        """``plain``: bf16 plain logits, ``f32``: the f32 model's, along the
+        same tokens; a token's tie-aware deficit against the f32 model is at
+        most twice their largest difference, which must stay within ``tol``."""
+        err = float((plain - f32).abs().max())
         print(f"    {name}: bf16 plain vs f32 model, max logit error {err:.3g}", flush=True)
-        if 2 * err > TOL_BF16:
-            fail(f"{name}: bf16 logit error {err:.3g} exceeds TOL_BF16 / 2")
+        if 2 * err > tol:
+            fail(f"{name}: bf16 logit error {err:.3g} exceeds half the tolerance {tol}")
+
+    def bf16_logit_error(name, cfg, params, prime, inputs, tokens):
+        plain = reference_scores(inputs, tokens, cfg, dtype=torch.bfloat16)
+        logit_error_check(name, plain, teacher_forced_scores(params, prime, tokens, cfg)[:, 1:],
+                          TOL_BF16)
+
+    def timed(fn, n_steps, reps):
+        fn(max(2, n_steps // 8))  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn(n_steps)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps / (n_steps - 1)  # ms per decode step
+
+    def reset_counts():
+        dec.LAUNCHES = 0
+        aedec.LAUNCHES = 0
 
     # -- 3. kernel vs plain on the card, tiny config
     tiny = wn.WaveNetConfig(dilations=(1, 2, 4, 8, 1, 2, 4, 8), dilation_channels=8,
@@ -182,32 +265,34 @@ def main() -> None:
             fail(f"{label}: the kernel differs from its plain version on "
                  f"{ker.numel() - exact} tokens")
         if dtype == torch.float32:
-            check(label, ker[:rows], model_scores(params, prime, tiny, **sampling), TOL_F32)
+            check(label, ker[:rows], model_scores(params, prime, tiny, **sampling), TOL_F32,
+                  kernel="wavenet_decode")
         else:
             check(f"{label} vs the f32 model", ker, model_scores(params, prime, tiny, **sampling),
-                  TOL_BF16, same_precision=False)
+                  TOL_BF16)
             bf16_logit_error(label, tiny, params, prime, inputs, ker)
 
     # -- 4. the main path at the shipped width, through the CLI
-    cfg_json = json.loads((ROOT / "music_tpu/params/wavenet/wavenet_params.json").read_text())
+    params_root = ROOT / "music_tpu_torch" / "params"
+    cfg_json = load_params_dir(params_root / "wavenet")["wavenet_params"]
     full = wn.WaveNetConfig.from_json(cfg_json)
     full_params = wn.init_params(full, torch.Generator().manual_seed(0))
     n_params = sum(v.numel() for v in full_params.values())
     print(f"[4] shipped config: {full.n_blocks} blocks, Cr={full.residual_channels}, "
           f"Cs={full.skip_channels}, Q={full.quantization_channels}, "
           f"receptive field {full.receptive_field}, {n_params} params")
+    n_samples = int(0.25 * 16000)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         checkpoint.save(tmp / "ckpt", 1, TrainState(params=full_params, step=1))
-        n_samples = int(0.25 * 16000)
         runs = [
             ("one stream", ["--out", str(tmp / "one.wav")], [tmp / "one.wav"]),
             ("32 streams", ["--out", str(tmp / "many.wav"), "--num", "32",
                             "--sample-mode", "categorical"],
              [tmp / "many" / f"gen_{i:03d}.wav" for i in range(32)]),
         ]
-        dec.LAUNCHES = 0
         codes, walls = {}, {}
+        reset_counts()
         for label, extra, wavs in runs:
             before = dec.LAUNCHES
             t0 = time.perf_counter()
@@ -223,15 +308,13 @@ def main() -> None:
             print(f"[4] CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
                   f"{dec.LAUNCHES - before} kernel launch(es), {walls[label]:.2f} s wall "
                   "(includes loading and priming)", flush=True)
-        main_path_launches = dec.LAUNCHES
-        if "jax" in sys.modules:
-            fail("jax was imported")
+        main_path_launches = {"wavenet_decode": dec.LAUNCHES}
     fp = {k: v.to(dev) for k, v in full_params.items()}
     silence = torch.full((32, full.receptive_field + max(full.dilations)),
                          full.quantization_channels // 2, dtype=torch.int32, device=dev)
     one = torch.from_numpy(codes["one stream"][:, :512]).to(dev)
     check("CLI one stream f32, first 512 steps", one, model_scores(fp, silence[:1], full),
-          TOL_F32)
+          TOL_F32, kernel="wavenet_decode")
     many = torch.from_numpy(codes["32 streams"][:, :512]).to(dev)
     if len({tuple(r) for r in codes["32 streams"].tolist()}) != 32:
         fail("the 32 categorical streams are not distinct")
@@ -242,31 +325,22 @@ def main() -> None:
                          dtype=torch.bfloat16, sample_mode="categorical")
     check("CLI 32 streams bf16 categorical vs its plain version, first 512 steps",
           many[:, 1:], lambda t: reference_scores(inputs, many, full, dtype=torch.bfloat16,
-                                                  sample_mode="categorical"), TOL_F32)
+                                                  sample_mode="categorical"), TOL_F32,
+          kernel="wavenet_decode")
     check("CLI 32 streams bf16 categorical vs the f32 model, first 512 steps", many,
-          model_scores(fp, silence, full, sample_mode="categorical"), TOL_BF16,
-          same_precision=False)
+          model_scores(fp, silence, full, sample_mode="categorical"), TOL_BF16)
     bf16_logit_error("CLI 32 streams", full, fp, silence, inputs, many)
 
     # -- 5. times at the main path's shapes
-    def timed(fn, n_steps, reps):
-        fn(max(2, n_steps // 8))  # warm-up
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(n_steps)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps / (n_steps - 1)  # ms per decode step
-
     shapes = [  # (label, CLI run, rows, dtype, mode, streams per block)
         ("1 stream f32 argmax", "one stream", 1, torch.float32, "argmax", 1),
         ("32 streams bf16 categorical", "32 streams", 32, torch.bfloat16, "categorical", s32),
         ("32 streams bf16 categorical, 16 per block", None, 32, torch.bfloat16,
          "categorical", 16),
     ]
-    times = {}
+    times, bounds = {}, {}
+    macs = step_macs(full.n_blocks, full.residual_channels, full.dilation_channels,
+                     full.skip_channels, full.quantization_channels)
     for label, run, rows, dtype, mode, S in shapes:
         inputs = dec.prepare(fp, silence[:rows], cfg=full, n_streams=S,
                              n_stream_groups=-(-rows // S), dtype=dtype, sample_mode=mode)
@@ -275,26 +349,193 @@ def main() -> None:
                     TIMED_STEPS, 3)
         plain = timed(lambda n: dec.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS, 1)
         times[label] = (ker, plain)
+        # one launch of TIMED_STEPS steps reads every input once (weights,
+        # rings, first tokens) and writes the rings and the tokens once
+        w, ring, s0, prev0 = inputs
+        launch_bytes = (nbytes(*w.values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
+                        + 4 * rows * TIMED_STEPS)
+        bounds[label] = bound(launch_bytes / (TIMED_STEPS - 1), 2 * macs * rows,
+                              str(dtype).removeprefix("torch."))
         print(f"[5] {label} ({S} per block, {-(-rows // S)} blocks): kernel "
               f"{ker * 1e3:.1f} us/step = {rows / ker * 1e3:.0f} samples/s; plain "
-              f"{plain * 1e3:.1f} us/step = {rows / plain * 1e3:.0f} samples/s  [{card}]",
-              flush=True)
+              f"{plain * 1e3:.1f} us/step = {rows / plain * 1e3:.0f} samples/s; bound "
+              f"{bounds[label][0] * 1e3:.3f} us/step ({bounds[label][1]}, "
+              f"{100 * bounds[label][0] / ker:.2f}% of the kernel's)  [{card}]", flush=True)
         if run is not None:
             kernel_s = ker * (n_samples - 1) / 1e3
             print(f"[5] CLI {run}: kernel {kernel_s:.3f} s of {walls[run]:.3f} s wall "
                   f"({100 * kernel_s / walls[run]:.0f}%, cold call, timing above)", flush=True)
+    b1 = {"times": times["1 stream f32 argmax"], "bound": bounds["1 stream f32 argmax"]}
 
-    ker_ms, plain_ms = times["1 stream f32 argmax"]
+    # -- 6. AE kernel vs plain on the card, tiny config
+    ae_tiny = ae.WaveNetAEConfig(
+        dilations=(1, 2, 4, 8, 1, 2, 4, 8), en_residual_channel=8, en_dilation_channel=8,
+        de_residual_channel=8, de_dilation_channel=8, de_skip_channel=16,
+        en_bottleneck_width=12, en_pool_kernel_size=16, quantization_channel=32)
+    ae_cases = [  # (label, rows, streams per block, dtype)
+        ("f32 1 stream", 1, 1, torch.float32),
+        ("f32 11 streams (2 x 8)", 11, 8, torch.float32),
+        ("bf16 16 streams", 16, 16, torch.bfloat16),
+    ]
+    g = torch.Generator().manual_seed(4321)
+    ae_params = ae.init_params(ae_tiny, g, device=dev)
+    P = ae_tiny.receptive_field + max(ae_tiny.dilations)
+    F_TINY = 12  # frames end at time 192: every stream clamps within 300 steps
+    for label, rows, S, dtype in ae_cases:
+        prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
+        enc = (0.3 * torch.randn((rows, F_TINY, ae_tiny.en_bottleneck_width),
+                                 generator=g)).to(dev)
+        # per-stream clocks: streams cross frame boundaries at different steps
+        pos = torch.tensor([0, 5, 17, 3, 30, 11, 24, 9, 1, 14, 28, 6, 19, 2, 25, 13][:rows],
+                           dtype=torch.int32, device=dev)
+        inputs = aedec.prepare(ae_params, enc, prime, cfg=ae_tiny, n_streams=S,
+                               n_stream_groups=-(-rows // S), dtype=dtype, pos_offset=pos)
+        kw = dict(cfg=ae_tiny, n_steps=300, dtype=dtype)
+        ker = aedec.decode_cuda(*inputs, n_streams=S, **kw)
+        torch.cuda.synchronize()
+        ref = aedec.decode_reference(*inputs, **kw)
+        exact = int((ker == ref).sum())
+        print(f"[6] AE {label}: kernel == plain on {exact}/{ker.numel()} tokens")
+        if exact != ker.numel():
+            fail(f"AE {label}: the kernel differs from its plain version on "
+                 f"{ker.numel() - exact} tokens")
+        ker = ker[:rows]
+
+        def ae_model(t, enc=enc, prime=prime, pos=pos):
+            return ae_teacher_forced_scores(ae_params, enc, prime, t.to(dev), ae_tiny,
+                                            pos_offset=pos)
+
+        if dtype == torch.float32:
+            check(f"AE {label}", ker, ae_model, TOL_F32, kernel="wavenet_ae_decode")
+        else:
+            check(f"AE {label} vs the f32 model", ker, ae_model, TOL_AE_BF16)
+            logit_error_check(f"AE {label}",
+                              ae_reference_scores(inputs, ker, ae_tiny, dtype=dtype),
+                              ae_model(ker)[:, 1:], TOL_AE_BF16)
+
+    # -- 7. the reconstruction path at the shipped width, through the CLI
+    ae_full = ae.WaveNetAEConfig.from_json(
+        load_params_dir(params_root / "wavenet_autoencoder")["model_params"])
+    ae_full_params = ae.init_params(ae_full, torch.Generator().manual_seed(0))
+    n_params = sum(v.numel() for v in ae_full_params.values())
+    Q = ae_full.quantization_channel
+    print(f"[7] shipped AE config: {ae_full.n_blocks} blocks, Cr={ae_full.de_residual_channel}, "
+          f"Cs={ae_full.de_skip_channel}, W={ae_full.en_bottleneck_width}, "
+          f"pool={ae_full.en_pool_kernel_size}, Q={Q}, receptive field "
+          f"{ae_full.receptive_field}, {n_params} params")
+    sr, n_clips = 16000, 32
+    rng = np.random.default_rng(7)
+    tt = np.arange(sr) / sr
+    clips = []
+    for _ in range(n_clips):  # 1.0 s seeded sine mixtures
+        freqs, amps = rng.uniform(80, 2000, 3), rng.uniform(0.1, 0.3, 3)
+        phases = rng.uniform(0, 2 * np.pi, 3)
+        clips.append(sum(a * np.sin(2 * np.pi * f * tt + p)
+                         for f, a, p in zip(freqs, amps, phases)).astype(np.float32))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        checkpoint.save(tmp / "ckpt", 1, TrainState(params=ae_full_params, step=1))
+        for i, clip in enumerate(clips):
+            wavio.write_wav(tmp / "clips" / f"clip_{i:03d}.wav", clip, sr)
+        # the sources as the CLI reads them (16-bit PCM)
+        sources = np.stack([wavio.read_wav(p)[0] for p in sorted((tmp / "clips").glob("*.wav"))])
+        ae_runs = [
+            ("one clip", tmp / "clips" / "clip_000.wav", [tmp / "one.wav"]),
+            ("32 clips", tmp / "clips",
+             [tmp / "many" / f"recon_{i:03d}.wav" for i in range(n_clips)]),
+        ]
+        ae_codes, ae_walls = {}, {}
+        reset_counts()
+        for label, source, wavs in ae_runs:
+            before = aedec.LAUNCHES
+            out = tmp / "one.wav" if source.is_file() else tmp / "many.wav"
+            t0 = time.perf_counter()
+            cli.main(["wavenet-ae", "generate", "--checkpoint", str(tmp / "ckpt"),
+                      "--source", str(source), "--out", str(out), "--duration", "0.25"])
+            torch.cuda.synchronize()
+            ae_walls[label] = time.perf_counter() - t0
+            if aedec.LAUNCHES <= before:
+                fail(f"AE CLI {label}: the AE decode kernel was not launched")
+            ae_codes[label] = np.stack([pcm_codes(w, Q) for w in wavs])
+            if ae_codes[label].shape != (len(wavs), n_samples):
+                fail(f"AE CLI {label}: wavs of shape {ae_codes[label].shape}, "
+                     f"want {n_samples} samples")
+            print(f"[7] AE CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
+                  f"{aedec.LAUNCHES - before} kernel launch(es), {ae_walls[label]:.2f} s wall "
+                  "(includes loading, encoding and priming)", flush=True)
+        main_path_launches["wavenet_ae_decode"] = aedec.LAUNCHES
+        if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
+                                       for m in sys.modules):
+            fail("jax or the JAX package was imported")
+    afp = {k: v.to(dev) for k, v in ae_full_params.items()}
+    src_codes = mu_law_encode(torch.from_numpy(sources), Q).to(dev)
+    with torch.no_grad(), full_fp32():
+        ae_enc = ae.encode(afp, src_codes, ae_full)
+    ae_P = ae_full.receptive_field + max(ae_full.dilations)
+    ae_prime = src_codes[:, :ae_P]
+    for label, rows in (("one clip", 1), ("32 clips", n_clips)):
+        toks = torch.from_numpy(ae_codes[label][:, :512]).to(dev)
+        check(f"AE CLI {label} f32, first 512 steps", toks,
+              lambda t, rows=rows: ae_teacher_forced_scores(afp, ae_enc[:rows], ae_prime[:rows],
+                                                            t, ae_full),
+              TOL_F32, kernel="wavenet_ae_decode")
+
+    # -- 8. AE times at the main path's shapes
+    ae_macs = step_macs(ae_full.n_blocks, ae_full.de_residual_channel,
+                        ae_full.de_dilation_channel, ae_full.de_skip_channel, Q)
+    ae_times, ae_bounds = {}, {}
+    for label, run, rows in (("1 stream f32", "one clip", 1),
+                             ("32 streams f32", "32 clips", n_clips)):
+        S, G = stream_tiling(rows, dev)
+        inputs = aedec.prepare(afp, ae_enc[:rows], ae_prime[:rows], cfg=ae_full, n_streams=S,
+                               n_stream_groups=G)
+        kw = dict(cfg=ae_full, dtype=torch.float32)
+        ker = timed(lambda n: aedec.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
+                    TIMED_STEPS, 3)
+        plain = timed(lambda n: aedec.decode_reference(*inputs, n_steps=n, **kw),
+                      PLAIN_STEPS, 1)
+        ae_times[label] = (ker, plain)
+        # one launch reads the weights, rings and first tokens once, and of
+        # the tables only the rows of the frames its steps reach; it writes
+        # the rings and the tokens once
+        w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
+        first = ae.frame_of(pos0.long(), ae_full.en_pool_kernel_size, cond_fg.shape[1])
+        last = ae.frame_of(pos0.long() + TIMED_STEPS - 2, ae_full.en_pool_kernel_size,
+                           cond_fg.shape[1])
+        rows_read = int((last - first + 1).sum())
+        row_bytes = (cond_fg.shape[2] + cond_post.shape[2]) * cond_fg.element_size()
+        launch_bytes = (nbytes(*w.values(), s0, prev0, pos0) + 2 * nbytes(ring)
+                        + rows_read * row_bytes + 4 * rows * TIMED_STEPS)
+        ae_bounds[label] = bound(launch_bytes / (TIMED_STEPS - 1), 2 * ae_macs * rows, "float32")
+        print(f"[8] AE {label} ({S} per block, {G} blocks): kernel {ker * 1e3:.1f} us/step = "
+              f"{rows / ker * 1e3:.0f} samples/s; plain {plain * 1e3:.1f} us/step = "
+              f"{rows / plain * 1e3:.0f} samples/s; bound {ae_bounds[label][0] * 1e3:.3f} "
+              f"us/step ({ae_bounds[label][1]}, {100 * ae_bounds[label][0] / ker:.2f}% of the "
+              f"kernel's)  [{card}]", flush=True)
+        kernel_s = ker * (n_samples - 1) / 1e3
+        print(f"[8] AE CLI {run}: kernel {kernel_s:.3f} s of {ae_walls[run]:.3f} s wall "
+              f"({100 * kernel_s / ae_walls[run]:.0f}%, cold call, timing above)", flush=True)
+    b3 = {"times": ae_times["1 stream f32"], "bound": ae_bounds["1 stream f32"]}
+
+    # -- 9. the kernels line (ms per decode step of one f32 stream at the
+    # shipped width; no single PyTorch call computes either decode)
+    described = [
+        ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
+        ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "wavenet_decode",
+        "name": name,
         "route": "cuda",
-        "source": "music_tpu_torch/csrc/wavenet_decode.cu",
-        "replaces": "music_tpu/kernels/wavenet_decode.py:134",
-        "launches": main_path_launches,
-        "max_abs_err": worst_deficit,
-        "ms": ker_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"music_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": main_path_launches[name],
+        "max_abs_err": worst_deficit[name],
+        "ms": m["times"][0],
+        "plain_ms": m["times"][1],
+        "bound_ms": m["bound"][0],
+        "bound_by": m["bound"][1],
+        "library_ms": None,
+    } for name, replaces, m in described]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

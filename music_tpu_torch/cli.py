@@ -3,11 +3,15 @@
     python -m music_tpu_torch wavenet generate --checkpoint DIR --out out.wav
         [--duration S] [--sample-mode argmax|categorical] [--num N]
         [--device cuda|cpu] [--params-dir DIR]
+    python -m music_tpu_torch wavenet-ae generate --checkpoint DIR
+        --source FILE|DIR --out out.wav [--duration S] [--device cuda|cpu]
+        [--params-dir DIR]
 
-Same arguments and defaults as ``python -m music_tpu wavenet generate``,
-plus ``--device`` (default: ``cuda`` when a card is present, else
-``cpu``).  The model config is read from ``--params-dir`` (default: the
-JAX package's ``music_tpu/params/wavenet``).
+Same arguments and defaults as ``python -m music_tpu wavenet generate`` and
+``python -m music_tpu wavenet-ae generate``, plus ``--device`` (default
+``cuda``; without a CUDA device the command fails unless ``--device cpu``
+is given).  The model config is read from ``--params-dir`` (default: the
+port's own ``music_tpu_torch/params/<family>``).
 """
 
 from __future__ import annotations
@@ -15,33 +19,71 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-import music_tpu
+PARAMS_ROOT = Path(__file__).parent / "params"
 
-PARAMS_ROOT = Path(music_tpu.__file__).parent / "params"
+
+def _out_dir(out: str) -> Path:
+    """The directory a multi-stream run writes to: ``--out``'s stem."""
+    out = Path(out)
+    return out.parent / out.stem if out.suffix == ".wav" else out
 
 
 def cmd_wavenet(args):
-    import torch
-
-    from music_tpu.core.config import load_params_dir
+    from music_tpu_torch.core.config import load_params_dir
     from music_tpu_torch.generate.wavenet_generate import generate, generate_batch
     from music_tpu_torch.models.wavenet import WaveNetConfig
 
     p = load_params_dir(Path(args.params_dir or PARAMS_ROOT / "wavenet"))
     cfg = WaveNetConfig.from_json(p["wavenet_params"])
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
     if args.num > 1:
-        out = Path(args.out)
-        out_dir = out.parent / out.stem if out.suffix == ".wav" else out
+        out_dir = _out_dir(args.out)
         generate_batch(
             cfg=cfg, checkpoint_dir=args.checkpoint, n=args.num, out_dir=out_dir,
-            duration=args.duration, sample_mode=args.sample_mode, device=device,
+            duration=args.duration, sample_mode=args.sample_mode, device=args.device,
         )
         print(f"wrote {args.num} wavs to {out_dir}/")
     else:
         generate(
             cfg=cfg, checkpoint_dir=args.checkpoint, out_path=args.out,
-            duration=args.duration, sample_mode=args.sample_mode, device=device,
+            duration=args.duration, sample_mode=args.sample_mode, device=args.device,
+        )
+        print(f"wrote {args.out}")
+
+
+def cmd_wavenet_ae(args):
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.generate.wavenet_ae_generate import generate, generate_batch
+    from music_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+
+    p = load_params_dir(Path(args.params_dir or PARAMS_ROOT / "wavenet_autoencoder"))
+    cfg = WaveNetAEConfig.from_json(p["model_params"])
+    src = Path(args.source)
+    if src.is_dir():
+        # serving path: every wav of the directory, resampled to 16 kHz and
+        # trimmed to the shortest clip so the conditioning frames align
+        import numpy as np
+
+        from music_tpu_torch.data import wavio
+
+        paths = sorted(src.glob("*.wav"))
+        if not paths:
+            raise SystemExit(f"no .wav files in {src}")
+        rows = []
+        for wav in paths:
+            audio, src_sr = wavio.read_wav(wav)
+            rows.append(wavio.resample(audio, src_sr, 16000))
+        t_min = min(len(r) for r in rows)
+        out_dir = _out_dir(args.out)
+        generate_batch(
+            cfg=cfg, checkpoint_dir=args.checkpoint,
+            source_audios=np.stack([r[:t_min] for r in rows]),
+            out_dir=out_dir, duration=args.duration, device=args.device,
+        )
+        print(f"wrote {len(paths)} wavs to {out_dir}/")
+    else:
+        generate(
+            cfg=cfg, checkpoint_dir=args.checkpoint, source_path=src, out_path=args.out,
+            duration=args.duration, device=args.device,
         )
         print(f"wrote {args.out}")
 
@@ -49,6 +91,8 @@ def cmd_wavenet(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="music_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
+    device_help = "cuda (default) or cpu"
+
     p = sub.add_parser("wavenet")
     p.add_argument("action", choices=["generate"])
     p.add_argument("--params-dir")
@@ -60,8 +104,23 @@ def main(argv=None):
         "--num", type=int, default=1,
         help="serve N independent streams (writes N wavs under --out's stem)",
     )
-    p.add_argument("--device", help="cuda or cpu (default: cuda when available)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     p.set_defaults(fn=cmd_wavenet)
+
+    p = sub.add_parser("wavenet-ae")
+    p.add_argument("action", choices=["generate"])
+    p.add_argument("--params-dir")
+    p.add_argument("--checkpoint")
+    p.add_argument(
+        "--source", required=True,
+        help="source wav to reconstruct, or a directory of wavs to serve "
+        "concurrently (writes one reconstruction per clip under --out's stem)",
+    )
+    p.add_argument("--out", default="reconstructed.wav")
+    p.add_argument("--duration", type=float, default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+    p.set_defaults(fn=cmd_wavenet_ae)
+
     args = parser.parse_args(argv)
     args.fn(args)
 

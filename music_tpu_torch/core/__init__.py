@@ -1,1 +1,1 @@
-"""Shared runtime core: checkpoint I/O."""
+"""Shared runtime core: checkpoint I/O and params files."""

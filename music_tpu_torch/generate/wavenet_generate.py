@@ -15,15 +15,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from music_tpu.data import wavio
 from music_tpu_torch.core import checkpoint as ckpt_lib
+from music_tpu_torch.data import wavio
 from music_tpu_torch.kernels import wavenet_decode
 from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.ops.mulaw import mu_law_decode
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """``torch.device`` for ``device``; a CUDA device must exist."""
+    """``torch.device`` for ``device``; a CUDA device must exist (there is
+    no fallback to the CPU: the caller asks for it with ``"cpu"``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -77,7 +78,7 @@ def generate(
     sample_mode: str = "argmax",
     temperature: float = 1.0,
     seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """Generate ``duration`` seconds of one stream (float32) and write it to
     ``out_path``; returns the audio.  ``start_piece``: optional µ-law codes
@@ -129,7 +130,7 @@ def generate_batch(
     temperature: float = 1.0,
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """Serve ``n`` independent streams in one decode call; returns ``[n, T]``
     audio and, with ``out_dir``, writes ``gen_000.wav ...``.

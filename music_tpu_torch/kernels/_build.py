@@ -50,25 +50,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library.
-    The ptxas report (registers, shared memory, spills) is kept beside the
-    library as ``<lib>.log``."""
-    if name in _LOADED:
-        return _LOADED[name]
-    lib = library_path(name)
-    if not lib.exists():
+def build(names: list[str]) -> None:
+    """Compile every library of ``names`` that is not built yet, one nvcc
+    process per source, all started together.  The ptxas report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<lib>.log``.  Raises if any build fails."""
+    running = []
+    for name in dict.fromkeys(names):
+        lib = library_path(name)
+        if name in _LOADED or lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = lib.with_suffix(".log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {name}:\n{proc.stdout}{proc.stderr}"
-            )
+        with open(log, "w") as out:
+            proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
+        running.append((name, proc, tmp, lib, log, time.perf_counter()))
+    failed = []
+    for name, proc, tmp, lib, log, t0 in running:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}:\n{log.read_text()}")
+            continue
         BUILD_SECONDS[name] = time.perf_counter() - t0
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         tmp.rename(lib)
-    _LOADED[name] = ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    if name not in _LOADED:
+        build([name])
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]

@@ -1,8 +1,10 @@
 """µ-law companding codec.
 
 Counterpart of :mod:`music_tpu.ops.mulaw`: encode in float32 with the same
-op order and a final truncation toward zero; decode through the committed
-Q=256 table (bit-exact), with the analytic float32 formula for other Q.
+op order and a final truncation toward zero; decode through the Q=256
+table committed beside this module (a copy of the JAX package's, bit-exact
+against the reference's torch arithmetic), with the analytic float32
+formula for other Q.
 """
 
 from __future__ import annotations
@@ -13,13 +15,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-import music_tpu
-
 
 @functools.cache
 def _decode_table_q256() -> np.ndarray:
-    """The JAX package's committed bit-exact Q=256 decode table."""
-    return np.load(Path(music_tpu.__file__).parent / "ops" / "_mulaw_decode_q256.npy")
+    """The committed bit-exact Q=256 decode table."""
+    return np.load(Path(__file__).with_name("_mulaw_decode_q256.npy"))
 
 
 def mu_law_encode(audio: torch.Tensor, quantization_channels: int = 256) -> torch.Tensor:

@@ -14,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from music_tpu_torch.kernels import wavenet_ae_decode
 from music_tpu_torch.kernels.wavenet_decode import decode_reference
+from music_tpu_torch.models import wavenet_ae
 from music_tpu_torch.models.wavenet import WaveNetConfig, forward
 from music_tpu_torch.ops.conv import full_fp32
 from music_tpu_torch.ops.philox import decode_uniforms, gumbel
@@ -77,6 +79,39 @@ def reference_scores(
     logits = decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1], dtype=dtype,
                               forced=tokens)
     return _with_noise(logits, 1, sample_mode, temperature, seed)
+
+
+@torch.no_grad()
+def ae_teacher_forced_scores(
+    params: dict, encoding: torch.Tensor, prime: torch.Tensor, tokens: torch.Tensor,
+    cfg: wavenet_ae.WaveNetAEConfig, *, pos_offset: int | torch.Tensor = 0,
+) -> torch.Tensor:
+    """Logits ``[B, n, Q]`` the plain autoencoder decoder gives each of
+    ``tokens [B, n]`` after ``prime [B, P]`` and the tokens before it,
+    conditioned by ``encoding [B, F, W]``: one parallel forward in full
+    float32 on the fused decode's absolute-time clock (``pos_offset`` is
+    the time of ``prime[:, 0]``; the token at time ``t`` is consumed under
+    frame ``min(t // pool, F - 1)``), not the ratio-based upsample of
+    :func:`~music_tpu_torch.models.wavenet_ae.forward`."""
+    P, rf = prime.shape[1], cfg.receptive_field
+    seq = torch.cat([prime.long(), tokens[:, :-1].long().to(prime.device)], dim=1)
+    start = torch.as_tensor(pos_offset, device=prime.device).reshape(-1) + (P - rf)
+    p32 = {k: v.float() for k, v in params.items()}
+    with full_fp32():
+        return wavenet_ae.decode(p32, seq[:, P - rf:], encoding.float(), cfg,
+                                 tokens.shape[1], start=start)
+
+
+def ae_reference_scores(inputs: tuple, tokens: torch.Tensor, cfg: wavenet_ae.WaveNetAEConfig,
+                        *, dtype: torch.dtype) -> torch.Tensor:
+    """Logits ``[B, n - 1, Q]`` the AE kernel's plain version
+    (:func:`~music_tpu_torch.kernels.wavenet_ae_decode.decode_reference`,
+    with its ``dtype`` rounding points) gives ``tokens[:, 1:]``,
+    teacher-forced from the kernel inputs ``inputs`` (as
+    :func:`~music_tpu_torch.kernels.wavenet_ae_decode.prepare` returns
+    them)."""
+    return wavenet_ae_decode.decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1],
+                                              dtype=dtype, forced=tokens)
 
 
 def _with_noise(logits, first_step, sample_mode, temperature, seed):
