@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build both CUDA kernels from ``music_tpu_torch/csrc/`` (one nvcc per
+2. build all four CUDA kernels from ``music_tpu_torch/csrc/`` (one nvcc per
    source, started together);
 
 WaveNet (kernel ``wavenet_decode``):
@@ -37,9 +37,42 @@ WaveNet autoencoder (kernel ``wavenet_ae_decode``):
    of the first 512 steps against the plain f32 model;
 8. samples/s of the kernel and its plain version for 1 and 32 streams;
 
-9. a JSON line describing each kernel (times in ms per decode step, with
-   the least time the card could take for the same step, ``bound_ms``),
-   then the device JSON as the last line.
+Weight-streaming kernels (``wavenet_decode_hbm``, ``wavenet_ae_decode_hbm``)
+at the 4.4x-scaled width (Cr = Cd = 64, Cs = 1024: 19.1 MB of f32 weights):
+
+9. the WaveNet kernel against its plain version at the tiny config in
+   every mode (f32 argmax 1 and 11 streams, bf16 16, categorical, int8
+   weights in f32 and bf16, int8 products with dynamic and static
+   activation scales): exact token matches, a tie-aware check against the
+   f32 model (on ``dequantized_params`` for int8 weights); then the tiny
+   model trained on the card, where int8 products must agree with the f32
+   model on >= 99% of the tokens;
+10. the WaveNet CLI with ``--params-dir`` at the scaled width: one f32
+    stream and 32 bf16 categorical streams, 0.25 s each; launches of the
+    weight-streaming kernel and none of the resident one, wavs, tie-aware
+    checks of 512 steps (f32 against the f32 model; bf16 against its plain
+    version and against the f32 model);
+11. the int8 modes at the scaled width (int8 weights with 1 f32 and 32
+    bf16 streams, int8 products with 32 bf16 streams): 512 steps tie-aware
+    against the plain version teacher-forced, and each mode's agreement
+    with the f32 model printed;
+12. the autoencoder kernel against its plain version at the tiny config
+    with per-stream clocks and clamped frames (f32 1 and 11 streams, bf16
+    16, int8 weights): exact token matches, tie-aware against the f32 model;
+13. ``wavenet-ae generate`` at the scaled decoder width on one clip and on
+    32 (0.25 s, f32): launches, wavs, tie-aware 512 steps against the f32
+    model; int8 weights on the 32 clips against their plain version;
+14. samples/s of both kernels (2048 steps) and their plain versions (128
+    steps) in each mode; then both sides of the routing rule, kernels only:
+    each resident kernel at the scaled width and each weight-streaming one
+    at the shipped width (WaveNet: 1 f32 stream and 32 bf16 categorical;
+    AE: 1 and 32 f32 streams; every f32 case first checked tie-aware against
+    the f32 model over 512 steps), each timed against the kernel the rule
+    picks on the same inputs;
+
+15. a JSON line describing each kernel (times in ms per decode step, with
+    the least time the card could take for the same step, ``bound_ms``),
+    then the device JSON as the last line.
 
 It imports nothing of JAX.  Float32 matmuls in the plain versions run in
 full float32 (TF32 off, see ``music_tpu_torch.ops.conv.full_fp32``).
@@ -49,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,8 +93,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL_F32 = 1e-4   # logits are O(0.1); kernel and plain differ in summation order only
 # bf16 plain vs the f32 model: max logit error measured 4.5e-4 at the
-# shipped width and 3.5e-4 at the tiny config (H100); a token's deficit is
-# at most twice the logit error, so 2e-3 leaves a factor 2.2 over that bound
+# shipped width, 4.6e-4 at the scaled width and 3.5e-4 at the tiny config
+# (H100); a token's deficit is at most twice the logit error, so 2e-3
+# leaves a factor 2.2 over that bound
 TOL_BF16 = 2e-3
 # the same for the autoencoder at its tiny config: max logit error measured
 # 1.49e-3 on the H100 and up to 1.85e-3 on the CPU
@@ -68,12 +103,13 @@ TOL_BF16 = 2e-3
 # too), so twice 2e-3, times 2
 TOL_AE_BF16 = 8e-3
 TIMED_STEPS, PLAIN_STEPS = 2048, 256
-KERNELS = ("wavenet_decode", "wavenet_ae_decode")
+PLAIN_STEPS_SCALED = 128  # the plain versions take 5-50 ms a step at the scaled width
+KERNELS = ("wavenet_decode", "wavenet_ae_decode", "wavenet_decode_hbm", "wavenet_ae_decode_hbm")
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM bytes/s, and
 # FLOP/s of the units the kernels' float32 FMAs run on, by weight dtype
 # (bf16 operands could run on the tensor cores)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def fail(msg: str):
@@ -156,7 +192,9 @@ def main() -> None:
     from music_tpu_torch.generate.wavenet_generate import stream_tiling
     from music_tpu_torch.kernels import _build
     from music_tpu_torch.kernels import wavenet_ae_decode as aedec
+    from music_tpu_torch.kernels import wavenet_ae_decode_hbm as aehbm
     from music_tpu_torch.kernels import wavenet_decode as dec
+    from music_tpu_torch.kernels import wavenet_decode_hbm as hbm
     from music_tpu_torch.models import wavenet as wn
     from music_tpu_torch.models import wavenet_ae as ae
     from music_tpu_torch.ops.conv import full_fp32
@@ -176,8 +214,8 @@ def main() -> None:
     # -- 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
     _build.build(list(KERNELS))
-    dec._library()
-    aedec._library()
+    for module in (dec, aedec, hbm, aehbm):
+        module._library()
     print(f"[2] built {len(KERNELS)} libraries in {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         lib_path = _build.library_path(name)
@@ -185,10 +223,13 @@ def main() -> None:
         print(f"[2] {lib_path.name}: "
               f"{f'nvcc {built:.1f} s' if built is not None else 'reused an existing build'}")
         log = lib_path.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    print("[2] ptxas:", line.strip())
+        if log.exists():  # one line per library: registers and spills of its kernels
+            text = log.read_text()
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+            spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", text))
+            if regs:
+                print(f"[2] ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                      f"registers, {spills} bytes of spills")
     sys.stdout.flush()
 
     worst_deficit = dict.fromkeys(KERNELS, 0.0)  # vs the plain version at its precision
@@ -234,8 +275,8 @@ def main() -> None:
         return start.elapsed_time(end) / reps / (n_steps - 1)  # ms per decode step
 
     def reset_counts():
-        dec.LAUNCHES = 0
-        aedec.LAUNCHES = 0
+        for module in (dec, aedec, hbm, aehbm):
+            module.LAUNCHES = 0
 
     # -- 3. kernel vs plain on the card, tiny config
     tiny = wn.WaveNetConfig(dilations=(1, 2, 4, 8, 1, 2, 4, 8), dilation_channels=8,
@@ -517,11 +558,378 @@ def main() -> None:
               f"({100 * kernel_s / ae_walls[run]:.0f}%, cold call, timing above)", flush=True)
     b3 = {"times": ae_times["1 stream f32"], "bound": ae_bounds["1 stream f32"]}
 
-    # -- 9. the kernels line (ms per decode step of one f32 stream at the
-    # shipped width; no single PyTorch call computes either decode)
+    # -- 9. the weight-streaming WaveNet kernel vs plain, tiny config, every mode
+    f32, bf16, int8 = torch.float32, torch.bfloat16, torch.int8
+    g = torch.Generator().manual_seed(999)
+    b2_params = wn.init_params(tiny, g, device=dev)
+    b2_dq = hbm.dequantized_params(b2_params, tiny)
+    calib = torch.randint(0, 32, (2, 600), generator=g).to(dev)
+    tiny_act = hbm.calibrate_act_scales(b2_params, tiny, calib)
+    P = tiny.receptive_field + max(tiny.dilations)
+    b2_cases = [  # (label, rows, streams per block, dtype, mode, weight dtype, int8 products, act)
+        ("f32 argmax 1 stream", 1, 1, f32, "argmax", None, False, None),
+        ("f32 argmax 11 streams (2 x 8)", 11, 8, f32, "argmax", None, False, None),
+        ("bf16 argmax 16 streams", 16, 16, bf16, "argmax", None, False, None),
+        ("f32 categorical 11 streams (2 x 8)", 11, 8, f32, "categorical", None, False, None),
+        ("int8 weights f32 11 streams", 11, 8, f32, "argmax", int8, False, None),
+        ("int8 weights bf16 16 streams", 16, 16, bf16, "argmax", int8, False, None),
+        ("int8 products, dynamic scales, 11 streams", 11, 8, f32, "argmax", int8, True, None),
+        ("int8 products, static scales, 11 streams", 11, 8, f32, "argmax", int8, True, tiny_act),
+    ]
+    for label, rows, S, dtype, mode, wd, q8, act in b2_cases:
+        prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
+        sampling = dict(sample_mode=mode, temperature=0.9, seed=77)
+        model = b2_params if wd is None else b2_dq  # int8 weights: requantizing dq is exact
+        inputs = hbm.prepare(model, prime, cfg=tiny, n_streams=S, n_stream_groups=-(-rows // S),
+                             dtype=dtype, weight_dtype=wd, int8_matmul=q8, act_scales=act,
+                             **sampling)
+        kw = dict(cfg=tiny, n_steps=300, dtype=dtype, int8_matmul=q8, **sampling)
+        ker = hbm.decode_cuda(*inputs, n_streams=S, **kw)
+        torch.cuda.synchronize()
+        ref = hbm.decode_reference(*inputs, **kw)
+        exact = int((ker == ref).sum())
+        print(f"[9] B2 {label}: kernel == plain on {exact}/{ker.numel()} tokens")
+        if exact != ker.numel():
+            first = (ker != ref).nonzero()[0].tolist()
+            fail(f"B2 {label}: the kernel differs from its plain version on "
+                 f"{ker.numel() - exact} tokens, first at (row, step) {first}")
+        ker = ker[:rows]
+        if q8:  # activations quantized: random weights give no agreement to hold
+            info = tie_aware_check(ker, model_scores(b2_params, prime, tiny), 1.0)
+            print(f"    B2 {label}: the f32 model's argmax on {info['exact']}/{info['n']} "
+                  "tokens (information)", flush=True)
+        elif dtype == f32:
+            check(f"B2 {label}", ker, model_scores(model, prime, tiny, **sampling), TOL_F32,
+                  kernel="wavenet_decode_hbm")
+        else:
+            check(f"B2 {label} vs the f32 model", ker, model_scores(model, prime, tiny, **sampling),
+                  TOL_BF16)
+
+    # the tiny model trained on the card (Adam, a repeating pattern, loss <
+    # 0.1), where int8 products must reproduce the f32 model's tokens
+    pat = np.tile(np.arange(8).repeat(3), 400)[: tiny.receptive_field + 256]
+    pat_t = torch.from_numpy(pat).to(dev)[None]
+    trained = wn.init_params(tiny, torch.Generator().manual_seed(0), device=dev)
+    trained = {k: v.requires_grad_(True) for k, v in trained.items()}
+    opt = torch.optim.Adam(trained.values(), lr=1e-2)
+    with full_fp32():
+        for it in range(1, 601):
+            loss = wn.loss_fn(trained, pat_t, tiny)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            if it >= 120 and loss.item() < 0.1:
+                break
+    print(f"[9] tiny model trained on the card: loss {loss.item():.4f} after {it} Adam steps")
+    if loss.item() >= 0.1:
+        fail(f"training the tiny model reached loss {loss.item():.3g}, not < 0.1")
+    trained = {k: v.detach() for k, v in trained.items()}
+    P16 = P + 16
+    tprime = pat_t[:, :P16].to(torch.int32)
+    with full_fp32():
+        want = wn.generate_tokens(trained, tprime, cfg=tiny, n_steps=150, prime_len=P16)
+    for label, act in (("dynamic", None),
+                       ("static", hbm.calibrate_act_scales(trained, tiny, pat_t))):
+        q8 = hbm.generate_tokens_fused_hbm(trained, tprime, cfg=tiny, n_steps=150, n_streams=1,
+                                           weight_dtype=int8, int8_matmul=True, act_scales=act)
+        agreement = float((q8 == want).float().mean())
+        print(f"[9] trained model, int8 products with {label} scales: {agreement:.4f} token "
+              "agreement with the f32 model", flush=True)
+        if agreement < 0.99:
+            fail(f"int8 products ({label}) agree with the f32 model on {agreement:.4f} < 0.99")
+
+    # -- 10. the weight-streaming path at the scaled width, through the CLI
+    scaled_json = {**cfg_json, "residual_channels": 64, "dilation_channels": 64,
+                   "skip_channels": 1024}
+    scaled = wn.WaveNetConfig.from_json(scaled_json)
+    scaled_params = wn.init_params(scaled, torch.Generator().manual_seed(0))
+    n_params = sum(v.numel() for v in scaled_params.values())
+    print(f"[10] scaled config: {scaled.n_blocks} blocks, Cr=Cd={scaled.residual_channels}, "
+          f"Cs={scaled.skip_channels}, {n_params} params, {4 * n_params / 1e6:.2f} MB f32, "
+          f"{hbm.max_streams(scaled)} streams a block at most")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        (tmp / "params").mkdir()
+        (tmp / "params" / "wavenet_params.json").write_text(json.dumps(scaled_json))
+        checkpoint.save(tmp / "ckpt", 1, TrainState(params=scaled_params, step=1))
+        common = ["wavenet", "generate", "--checkpoint", str(tmp / "ckpt"), "--params-dir",
+                  str(tmp / "params"), "--duration", "0.25"]
+        scaled_codes = {}
+        reset_counts()
+        for label, extra, wavs in [
+            ("one stream", ["--out", str(tmp / "one.wav")], [tmp / "one.wav"]),
+            ("32 streams", ["--out", str(tmp / "many.wav"), "--num", "32",
+                            "--sample-mode", "categorical"],
+             [tmp / "many" / f"gen_{i:03d}.wav" for i in range(32)]),
+        ]:
+            before = hbm.LAUNCHES
+            t0 = time.perf_counter()
+            cli.main(common + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if hbm.LAUNCHES <= before:
+                fail(f"scaled CLI {label}: the weight-streaming kernel was not launched")
+            scaled_codes[label] = np.stack([pcm_codes(w, 256) for w in wavs])
+            if scaled_codes[label].shape != (len(wavs), n_samples):
+                fail(f"scaled CLI {label}: wavs of shape {scaled_codes[label].shape}")
+            print(f"[10] scaled CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
+                  f"{hbm.LAUNCHES - before} weight-streaming launch(es), {wall:.2f} s wall",
+                  flush=True)
+        if dec.LAUNCHES:
+            fail("the resident WaveNet kernel was launched on the scaled path")
+        main_path_launches["wavenet_decode_hbm"] = hbm.LAUNCHES
+    sfp = {k: v.to(dev) for k, v in scaled_params.items()}
+    s_sil = torch.full((32, scaled.receptive_field + max(scaled.dilations)), 128,
+                       dtype=torch.int32, device=dev)
+    one = torch.from_numpy(scaled_codes["one stream"][:, :512]).to(dev)
+    check("[10] scaled CLI one stream f32, first 512 steps", one,
+          model_scores(sfp, s_sil[:1], scaled), TOL_F32, kernel="wavenet_decode_hbm")
+    many = torch.from_numpy(scaled_codes["32 streams"][:, :512]).to(dev)
+    if len({tuple(r) for r in scaled_codes["32 streams"].tolist()}) != 32:
+        fail("the 32 scaled categorical streams are not distinct")
+    S, G = stream_tiling(32, dev, hbm.max_streams(scaled))
+    inputs = hbm.prepare(sfp, s_sil, cfg=scaled, n_streams=S, n_stream_groups=G, dtype=bf16,
+                         sample_mode="categorical")
+    check("[10] scaled CLI 32 streams bf16 categorical vs its plain version, first 512 steps",
+          many[:, 1:], lambda t: reference_scores(inputs, many, scaled, dtype=bf16, kernel=hbm,
+                                                  sample_mode="categorical"),
+          TOL_F32, kernel="wavenet_decode_hbm")
+    check("[10] scaled CLI 32 streams bf16 categorical vs the f32 model, first 512 steps", many,
+          model_scores(sfp, s_sil, scaled, sample_mode="categorical"), TOL_BF16)
+    logit_error_check("[10] scaled CLI 32 streams",
+                      reference_scores(inputs, many, scaled, dtype=bf16, kernel=hbm),
+                      teacher_forced_scores(sfp, s_sil, many, scaled)[:, 1:], TOL_BF16)
+
+    # -- 11. the int8 modes at the scaled width
+    rprime = torch.randint(0, 256, s_sil.shape, generator=torch.Generator().manual_seed(11))
+    rprime = rprime.to(dev, torch.int32)
+    for label, rows, dtype, q8 in [("int8 weights, 1 f32 stream", 1, f32, False),
+                                   ("int8 weights, 32 bf16 streams", 32, bf16, False),
+                                   ("int8 products, 32 bf16 streams", 32, bf16, True)]:
+        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, q8))
+        opts = dict(cfg=scaled, n_streams=S, n_stream_groups=G, dtype=dtype, weight_dtype=int8,
+                    int8_matmul=q8)
+        before = hbm.LAUNCHES
+        toks = hbm.generate_tokens_fused_hbm(sfp, rprime[:rows], n_steps=512, **opts)
+        torch.cuda.synchronize()
+        if hbm.LAUNCHES != before + 1:
+            fail(f"[11] {label}: the weight-streaming kernel was not launched once")
+        inputs = hbm.prepare(sfp, rprime[:rows], **opts)
+        check(f"[11] scaled {label} vs its plain version, 512 steps", toks[:, 1:],
+              lambda t, inputs=inputs, toks=toks, dtype=dtype, q8=q8: reference_scores(
+                  inputs, toks, scaled, dtype=dtype, kernel=hbm, int8_matmul=q8),
+              TOL_F32, kernel="wavenet_decode_hbm")
+        info = tie_aware_check(toks, model_scores(sfp, rprime[:rows], scaled), 1.0)
+        print(f"    [11] scaled {label}: the f32 model's argmax on {info['exact']}/{info['n']} "
+              "tokens (information)", flush=True)
+
+    # -- 12. the weight-streaming AE kernel vs plain, tiny config
+    g = torch.Generator().manual_seed(4444)
+    b4_params = ae.init_params(ae_tiny, g, device=dev)
+    b4_dq = aehbm.dequantized_params(b4_params, ae_tiny)
+    P = ae_tiny.receptive_field + max(ae_tiny.dilations)
+    for label, rows, S, dtype, wd in [("f32 1 stream", 1, 1, f32, None),
+                                      ("f32 11 streams (2 x 8)", 11, 8, f32, None),
+                                      ("bf16 16 streams", 16, 16, bf16, None),
+                                      ("int8 weights f32 11 streams", 11, 8, f32, int8)]:
+        prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
+        enc = (0.3 * torch.randn((rows, F_TINY, ae_tiny.en_bottleneck_width),
+                                 generator=g)).to(dev)
+        pos = torch.tensor([0, 5, 17, 3, 30, 11, 24, 9, 1, 14, 28, 6, 19, 2, 25, 13][:rows],
+                           dtype=torch.int32, device=dev)
+        model = b4_params if wd is None else b4_dq
+        inputs = aehbm.prepare(model, enc, prime, cfg=ae_tiny, n_streams=S,
+                               n_stream_groups=-(-rows // S), dtype=dtype, weight_dtype=wd,
+                               pos_offset=pos)
+        kw = dict(cfg=ae_tiny, n_steps=300, dtype=dtype)
+        ker = aehbm.decode_cuda(*inputs, n_streams=S, **kw)
+        torch.cuda.synchronize()
+        ref = aehbm.decode_reference(*inputs, **kw)
+        exact = int((ker == ref).sum())
+        print(f"[12] B4 {label}: kernel == plain on {exact}/{ker.numel()} tokens")
+        if exact != ker.numel():
+            fail(f"B4 {label}: the kernel differs from its plain version on "
+                 f"{ker.numel() - exact} tokens")
+
+        def b4_model(t, model=model, enc=enc, prime=prime, pos=pos):
+            return ae_teacher_forced_scores(model, enc, prime, t.to(dev), ae_tiny,
+                                            pos_offset=pos)
+
+        if dtype == f32:
+            check(f"[12] B4 {label}", ker[:rows], b4_model, TOL_F32,
+                  kernel="wavenet_ae_decode_hbm")
+        else:
+            check(f"[12] B4 {label} vs the f32 model", ker[:rows], b4_model, TOL_AE_BF16)
+
+    # -- 13. the weight-streaming AE path at the scaled decoder width, CLI
+    ae_scaled_json = {**load_params_dir(params_root / "wavenet_autoencoder")["model_params"],
+                      "de_residual_channel": 64, "de_dilation_channel": 64,
+                      "de_skip_channel": 1024}
+    ae_scaled = ae.WaveNetAEConfig.from_json(ae_scaled_json)
+    ae_scaled_params = ae.init_params(ae_scaled, torch.Generator().manual_seed(0))
+    dec_params = sum(ae_scaled_params[k].numel() for k in aehbm.DECODER_KEYS)
+    print(f"[13] scaled AE decoder: Cr=Cd={ae_scaled.de_residual_channel}, "
+          f"Cs={ae_scaled.de_skip_channel}, {dec_params} decoder params in the kernel "
+          f"({4 * dec_params / 1e6:.2f} MB f32)")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        (tmp / "params").mkdir()
+        (tmp / "params" / "model_params.json").write_text(json.dumps(ae_scaled_json))
+        checkpoint.save(tmp / "ckpt", 1, TrainState(params=ae_scaled_params, step=1))
+        for i, clip in enumerate(clips):
+            wavio.write_wav(tmp / "clips" / f"clip_{i:03d}.wav", clip, sr)
+        ae_scaled_codes = {}
+        reset_counts()
+        for label, source, wavs in [
+            ("one clip", tmp / "clips" / "clip_000.wav", [tmp / "one.wav"]),
+            ("32 clips", tmp / "clips",
+             [tmp / "many" / f"recon_{i:03d}.wav" for i in range(n_clips)]),
+        ]:
+            before = aehbm.LAUNCHES
+            out = tmp / "one.wav" if source.is_file() else tmp / "many.wav"
+            t0 = time.perf_counter()
+            cli.main(["wavenet-ae", "generate", "--checkpoint", str(tmp / "ckpt"),
+                      "--params-dir", str(tmp / "params"), "--source", str(source),
+                      "--out", str(out), "--duration", "0.25"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if aehbm.LAUNCHES <= before:
+                fail(f"scaled AE CLI {label}: the weight-streaming AE kernel was not launched")
+            ae_scaled_codes[label] = np.stack([pcm_codes(w, Q) for w in wavs])
+            if ae_scaled_codes[label].shape != (len(wavs), n_samples):
+                fail(f"scaled AE CLI {label}: wavs of shape {ae_scaled_codes[label].shape}")
+            print(f"[13] scaled AE CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
+                  f"{aehbm.LAUNCHES - before} weight-streaming launch(es), {wall:.2f} s wall",
+                  flush=True)
+        if aedec.LAUNCHES:
+            fail("the resident AE kernel was launched on the scaled path")
+        main_path_launches["wavenet_ae_decode_hbm"] = aehbm.LAUNCHES
+    asp = {k: v.to(dev) for k, v in ae_scaled_params.items()}
+    with torch.no_grad(), full_fp32():
+        as_enc = ae.encode(asp, src_codes, ae_scaled)
+    as_prime = src_codes[:, :ae_scaled.receptive_field + max(ae_scaled.dilations)]
+    for label, rows in (("one clip", 1), ("32 clips", n_clips)):
+        toks = torch.from_numpy(ae_scaled_codes[label][:, :512]).to(dev)
+        check(f"[13] scaled AE CLI {label} f32, first 512 steps", toks,
+              lambda t, rows=rows: ae_teacher_forced_scores(asp, as_enc[:rows], as_prime[:rows],
+                                                            t, ae_scaled),
+              TOL_F32, kernel="wavenet_ae_decode_hbm")
+    S, G = stream_tiling(n_clips, dev, aehbm.max_streams(ae_scaled))
+    opts = dict(cfg=ae_scaled, n_streams=S, n_stream_groups=G, weight_dtype=int8)
+    toks = aehbm.generate_tokens_fused_hbm(asp, as_enc, as_prime, n_steps=512, **opts)
+    inputs = aehbm.prepare(asp, as_enc, as_prime, **opts)
+    check("[13] scaled AE int8 weights, 32 clips vs its plain version, 512 steps", toks[:, 1:],
+          lambda t: ae_reference_scores(inputs, toks, ae_scaled, dtype=f32, kernel=aehbm),
+          TOL_F32, kernel="wavenet_ae_decode_hbm")
+
+    # -- 14. times of the weight-streaming kernels at the scaled width
+    scaled_macs = step_macs(scaled.n_blocks, scaled.residual_channels,
+                            scaled.dilation_channels, scaled.skip_channels,
+                            scaled.quantization_channels)
+    hbm_times = {}
+    for label, rows, dtype, mode, wd, q8 in [
+        ("1 stream f32", 1, f32, "argmax", None, False),
+        ("32 streams bf16 categorical", 32, bf16, "categorical", None, False),
+        ("32 streams bf16 int8 weights", 32, bf16, "categorical", int8, False),
+        ("32 streams bf16 int8 products", 32, bf16, "categorical", int8, True),
+    ]:
+        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, q8))
+        inputs = hbm.prepare(sfp, s_sil[:rows], cfg=scaled, n_streams=S, n_stream_groups=G,
+                             dtype=dtype, weight_dtype=wd, int8_matmul=q8, sample_mode=mode)
+        kw = dict(cfg=scaled, dtype=dtype, int8_matmul=q8, sample_mode=mode)
+        ker = timed(lambda n: hbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
+                    TIMED_STEPS, 3)
+        plain = timed(lambda n: hbm.decode_reference(*inputs, n_steps=n, **kw),
+                      PLAIN_STEPS_SCALED, 1)
+        w, ring, s0, prev0 = inputs
+        launch_bytes = (nbytes(*w.values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
+                        + 4 * rows * TIMED_STEPS)
+        peak = "int8" if q8 else str(dtype).removeprefix("torch.")
+        hbm_times[label] = (ker, plain, bound(launch_bytes / (TIMED_STEPS - 1),
+                                              2 * scaled_macs * rows, peak))
+        b = hbm_times[label][2]
+        print(f"[14] B2 {label} ({S} per block, {G} blocks): kernel {ker * 1e3:.1f} us/step = "
+              f"{rows / ker * 1e3:.0f} samples/s; plain {plain * 1e3:.1f} us/step = "
+              f"{rows / plain * 1e3:.0f} samples/s; bound {b[0] * 1e3:.3f} us/step ({b[1]}, "
+              f"{100 * b[0] / ker:.3f}% of the kernel's)  [{card}]", flush=True)
+    for label, rows, wd in [("1 stream f32", 1, None), ("32 streams f32", n_clips, None),
+                            ("32 streams f32 int8 weights", n_clips, int8)]:
+        S, G = stream_tiling(rows, dev, aehbm.max_streams(ae_scaled))
+        inputs = aehbm.prepare(asp, as_enc[:rows], as_prime[:rows], cfg=ae_scaled, n_streams=S,
+                               n_stream_groups=G, weight_dtype=wd)
+        kw = dict(cfg=ae_scaled, dtype=f32)
+        ker = timed(lambda n: aehbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
+                    TIMED_STEPS, 3)
+        plain = timed(lambda n: aehbm.decode_reference(*inputs, n_steps=n, **kw),
+                      PLAIN_STEPS_SCALED, 1)
+        w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
+        pool, F = ae_scaled.en_pool_kernel_size, cond_fg.shape[1]
+        rows_read = int((ae.frame_of(pos0.long() + TIMED_STEPS - 2, pool, F)
+                         - ae.frame_of(pos0.long(), pool, F) + 1).sum())
+        row_bytes = (cond_fg.shape[2] + cond_post.shape[2]) * cond_fg.element_size()
+        launch_bytes = (nbytes(*w.values(), s0, prev0, pos0) + 2 * nbytes(ring)
+                        + rows_read * row_bytes + 4 * rows * TIMED_STEPS)
+        hbm_times["AE " + label] = (ker, plain, bound(launch_bytes / (TIMED_STEPS - 1),
+                                                      2 * scaled_macs * rows, "float32"))
+        b = hbm_times["AE " + label][2]
+        print(f"[14] B4 {label} ({S} per block, {G} blocks): kernel {ker * 1e3:.1f} us/step = "
+              f"{rows / ker * 1e3:.0f} samples/s; plain {plain * 1e3:.1f} us/step = "
+              f"{rows / plain * 1e3:.0f} samples/s; bound {b[0] * 1e3:.3f} us/step ({b[1]}, "
+              f"{100 * b[0] / ker:.3f}% of the kernel's)  [{card}]", flush=True)
+
+    # the routing rule's two sides, kernels only: each resident kernel at the
+    # scaled width (its carve fits there up to 8 streams a block) and each
+    # weight-streaming one at the shipped width, on the inputs of the kernel
+    # the rule picks, timed against it
+    def off_route(label, name, mod, cfg_, args, dtype, opts, model_fn, routed):
+        rows = args[-1].shape[0]
+        S, G = stream_tiling(rows, dev)
+        inputs = mod.prepare(*args, cfg=cfg_, n_streams=S, n_stream_groups=G, dtype=dtype, **opts)
+        kw = dict(cfg=cfg_, dtype=dtype, **opts)
+        if model_fn is not None:  # off its route the kernel still computes the model
+            toks = mod.decode_cuda(*inputs, n_steps=512, n_streams=S, **kw)[:rows]
+            check(f"[14] {name} at the {label}, 512 steps", toks, model_fn, TOL_F32)
+        ker = timed(lambda n: mod.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
+                    TIMED_STEPS, 3)
+        print(f"[14] routing, {label} ({S} per block, {G} blocks): {name} {ker * 1e3:.1f} "
+              f"us/step against {routed[0]} {routed[1] * 1e3:.1f} us/step (the rule's pick): "
+              f"{name if ker < routed[1] else routed[0]} is faster  [{card}]", flush=True)
+
+    def ae_model_scores(params_, enc, prime_, cfg_):
+        return lambda t: ae_teacher_forced_scores(params_, enc, prime_, t.to(dev), cfg_)
+
+    cat = {"sample_mode": "categorical"}
+    off_route("scaled width, 1 stream f32", "B1", dec, scaled, (sfp, s_sil[:1]), f32, {},
+              model_scores(sfp, s_sil[:1], scaled), ("B2", hbm_times["1 stream f32"][0]))
+    off_route("scaled width, 32 streams bf16 categorical", "B1", dec, scaled, (sfp, s_sil), bf16,
+              cat, None, ("B2", hbm_times["32 streams bf16 categorical"][0]))
+    off_route("shipped width, 1 stream f32", "B2", hbm, full, (fp, silence[:1]), f32, {},
+              model_scores(fp, silence[:1], full), ("B1", times["1 stream f32 argmax"][0]))
+    off_route("shipped width, 32 streams bf16 categorical", "B2", hbm, full, (fp, silence), bf16,
+              cat, None, ("B1", times["32 streams bf16 categorical"][0]))
+    for rows, key in ((1, "1 stream f32"), (n_clips, "32 streams f32")):
+        off_route(f"scaled AE decoder, {key}", "B3", aedec, ae_scaled,
+                  (asp, as_enc[:rows], as_prime[:rows]), f32, {},
+                  ae_model_scores(asp, as_enc[:rows], as_prime[:rows], ae_scaled),
+                  ("B4", hbm_times["AE " + key][0]))
+        off_route(f"shipped AE, {key}", "B4", aehbm, ae_full,
+                  (afp, ae_enc[:rows], ae_prime[:rows]), f32, {},
+                  ae_model_scores(afp, ae_enc[:rows], ae_prime[:rows], ae_full),
+                  ("B3", ae_times[key][0]))
+    b2 = {"times": hbm_times["1 stream f32"], "bound": hbm_times["1 stream f32"][2]}
+    b4 = {"times": hbm_times["AE 1 stream f32"], "bound": hbm_times["AE 1 stream f32"][2]}
+    if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
+                                   for m in sys.modules):
+        fail("jax or the JAX package was imported")
+
+    # -- 15. the kernels line (ms per decode step of one f32 stream: B1 and
+    # B3 at the shipped width, B2 and B4 at the scaled width; no single
+    # PyTorch call computes any of the decodes)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
+        ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
+        ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
     print(json.dumps({"kernels": [{
         "name": name,

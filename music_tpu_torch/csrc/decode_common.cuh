@@ -1,7 +1,8 @@
 // Pieces shared by the fused decode kernels (wavenet_decode.cu,
-// wavenet_ae_decode.cu): the working-dtype helpers, the block-wide
-// matrix-vector products with float32 accumulation, and the per-warp
-// argmax.  All inline device code; each kernel is its own library.
+// wavenet_ae_decode.cu and the weight-streaming kernels of
+// decode_hbm.cuh): the working-dtype helpers, the block-wide
+// matrix-vector products with float32 accumulation, Philox4x32-10 and the
+// per-warp argmax.  All inline device code; each kernel is its own library.
 
 #pragma once
 
@@ -104,6 +105,24 @@ __device__ __forceinline__ float red_sum(const float* red, int splits, int N, in
   float v = 0.f;
   for (int ks = 0; ks < splits; ++ks) v += red[(ks * S + s) * N + n];
   return v;
+}
+
+// Philox4x32-10 (Random123 constants), as music_tpu_torch/ops/philox.py.
+__device__ __forceinline__ void philox(uint32_t (&c)[4], uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+  }
 }
 
 // Index of the largest of v[0..Q) over one warp, the lowest index on ties;

@@ -4,10 +4,20 @@ Counterpart of :mod:`music_tpu.generate.wavenet_ae_generate` (``generate``
 and the single-device ``generate_batch``): µ-law encode the source clips,
 encode them through the bottleneck, prime with the first
 ``receptive_field + max(d)`` codes of each source, decode the
-reconstruction through
-:func:`music_tpu_torch.kernels.wavenet_ae_decode.generate_tokens_fused` in
-one call (one kernel launch on a CUDA device, its plain version on the
-CPU), µ-law decode and write 16-bit PCM wavs.
+reconstruction in one call (one kernel launch on a CUDA device, the
+kernel's plain version on the CPU), µ-law decode and write 16-bit PCM wavs.
+
+Which kernel decodes is
+:func:`~music_tpu_torch.generate.wavenet_generate.streams_weights`'s rule on
+the float32 bytes of the decoder parameters that enter the kernel
+(:data:`~music_tpu_torch.kernels.wavenet_ae_decode_hbm.DECODER_KEYS`): the
+shipped decoder (5.08 MB) goes to
+:mod:`music_tpu_torch.kernels.wavenet_ae_decode`, a scaled decoder (Cr =
+Cd = 64, Cs = 1024: 19.1 MB) to the weight-streaming
+:mod:`music_tpu_torch.kernels.wavenet_ae_decode_hbm`.  music_tpu's
+``plan_ae_serving`` also sends the shipped decoder to its weight-streaming
+kernel when the resident one does not fit VMEM beside many streams; on the
+card the resident kernel serves any stream count, so the port does not.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ import torch
 
 from music_tpu_torch.core import checkpoint as ckpt_lib
 from music_tpu_torch.data import wavio
-from music_tpu_torch.generate.wavenet_generate import resolve_device, stream_tiling
-from music_tpu_torch.kernels import wavenet_ae_decode
+from music_tpu_torch.generate.wavenet_generate import (
+    resolve_device, stream_tiling, streams_weights,
+)
+from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_ae_decode_hbm
 from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.conv import full_fp32
 from music_tpu_torch.ops.mulaw import mu_law_decode, mu_law_encode
@@ -70,11 +82,15 @@ def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed
             f"receptive_field + max dilation = {prime_len} samples (got sample_mode="
             f"{sample_mode!r}, {codes.shape[1]} samples); use backend='scan'"
         )
-    n_streams, n_groups = stream_tiling(codes.shape[0], codes.device)
+    kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype)
+    n, device, prime = codes.shape[0], codes.device, codes[:, :prime_len]
+    if streams_weights(4 * sum(params[k].numel() for k in wavenet_ae_decode_hbm.DECODER_KEYS)):
+        S, G = stream_tiling(n, device, wavenet_ae_decode_hbm.max_streams(cfg))
+        return wavenet_ae_decode_hbm.generate_tokens_fused_hbm(
+            params, encoding, prime, n_streams=S, n_stream_groups=G, **kw)
+    S, G = stream_tiling(n, device)
     return wavenet_ae_decode.generate_tokens_fused(
-        params, encoding, codes[:, :prime_len], cfg=cfg, n_steps=n_steps,
-        n_streams=n_streams, n_stream_groups=n_groups, dtype=dtype,
-    )
+        params, encoding, prime, n_streams=S, n_stream_groups=G, **kw)
 
 
 def generate(

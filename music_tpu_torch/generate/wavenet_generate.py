@@ -2,10 +2,20 @@
 
 Counterpart of :mod:`music_tpu.generate.wavenet_generate` (``generate`` and
 ``generate_batch``, on one device): load the parameters, prime with a
-receptive field (+ max dilation) of µ-law silence (code Q//2), decode
-through :func:`music_tpu_torch.kernels.wavenet_decode.generate_tokens_fused`
-in one call (one kernel launch on a CUDA device, its plain version on the
-CPU), µ-law decode and write 16-bit PCM wavs.
+receptive field (+ max dilation) of µ-law silence (code Q//2), decode in
+one call (one kernel launch on a CUDA device, the kernel's plain version on
+the CPU), µ-law decode and write 16-bit PCM wavs.
+
+Which kernel decodes is :func:`streams_weights`'s rule: models whose
+float32 weights reach :data:`STREAMING_MIN_BYTES` go to the
+weight-streaming kernel (:mod:`music_tpu_torch.kernels.wavenet_decode_hbm`,
+e.g. the 4.4x-scaled model, 19.1 MB), the others to
+:mod:`music_tpu_torch.kernels.wavenet_decode` (the shipped model, 5.08 MB).
+It is the counterpart of the size rule of music_tpu's ``_fused_decode``.
+The TPU's ``plan_fused_serving`` also moves the shipped model to its
+weight-streaming kernel past about 128 streams, for lack of VMEM; on the
+card the resident kernel serves any stream count (rings in device memory),
+so the port does not.
 """
 
 from __future__ import annotations
@@ -17,9 +27,25 @@ import torch
 
 from music_tpu_torch.core import checkpoint as ckpt_lib
 from music_tpu_torch.data import wavio
-from music_tpu_torch.kernels import wavenet_decode
+from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
 from music_tpu_torch.models import wavenet as wn
+from music_tpu_torch.ops.conv import full_fp32
 from music_tpu_torch.ops.mulaw import mu_law_decode
+
+BACKENDS = ("fused", "scan")
+STREAMING_MIN_BYTES = 12e6
+"""float32 bytes of the decode kernel's weights from which a model is
+decoded by the weight-streaming kernel (music_tpu's ``_fused_decode``
+threshold, a TPU VMEM budget).  On an H100 the resident kernel is the
+faster one on both sides of it while its shared-memory carve fits the
+tile (PERF.md, section 6)."""
+
+
+def streams_weights(f32_bytes: float) -> bool:
+    """Whether a model whose decode-kernel weights take ``f32_bytes`` in
+    float32 goes to the weight-streaming kernel (B2, or B4 for the
+    autoencoder) rather than the resident one (B1, B3)."""
+    return f32_bytes >= STREAMING_MIN_BYTES
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -45,20 +71,50 @@ def load_params(
     return {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
 
 
-def stream_tiling(n: int, device: torch.device) -> tuple[int, int]:
+def stream_tiling(n: int, device: torch.device,
+                  max_streams: int = wavenet_decode.SUPPORTED_STREAMS[-1]) -> tuple[int, int]:
     """``(n_streams, n_stream_groups)`` for ``n`` streams.  On a CUDA device
     one thread block per stream while the streams fit the SMs, else the
     fewest streams per block that do (a block's step time barely grows
-    with its stream count, and more blocks read the weights in parallel);
-    on the CPU one group holds every stream."""
+    with its stream count, and more blocks read the weights in parallel),
+    never more than the kernel's ``max_streams``; on the CPU one group
+    holds every stream."""
     if device.type != "cuda":
         return n, 1
+    sizes = [s for s in wavenet_decode.SUPPORTED_STREAMS if s <= max_streams]
+    if not sizes:
+        raise ValueError("the decode kernel fits no stream tile for this config")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for s in wavenet_decode.SUPPORTED_STREAMS:
+    for s in sizes:
         if -(-n // s) <= sms:
             return s, -(-n // s)
-    s = wavenet_decode.SUPPORTED_STREAMS[-1]
-    return s, -(-n // s)
+    return sizes[-1], -(-n // sizes[-1])
+
+
+def _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature, seed):
+    """``prime``'s rows decoded in one call of the kernel
+    :func:`streams_weights` picks, tiled as :func:`stream_tiling` says."""
+    kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, sample_mode=sample_mode,
+              temperature=temperature, seed=seed)
+    n, device = prime.shape[0], prime.device
+    if streams_weights(4 * sum(v.numel() for v in params.values())):
+        S, G = stream_tiling(n, device, wavenet_decode_hbm.max_streams(cfg))
+        return wavenet_decode_hbm.generate_tokens_fused_hbm(
+            params, prime, n_streams=S, n_stream_groups=G, **kw)
+    S, G = stream_tiling(n, device)
+    return wavenet_decode.generate_tokens_fused(params, prime, n_streams=S, n_stream_groups=G,
+                                                **kw)
+
+
+def _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed):
+    """The plain step loop on ``prime``'s device (torch's own random
+    numbers for categorical)."""
+    with full_fp32():
+        return wn.generate_tokens(
+            params, prime, torch.Generator(prime.device).manual_seed(seed), cfg=cfg,
+            n_steps=n_steps, prime_len=prime.shape[1], sample_mode=sample_mode,
+            temperature=temperature,
+        )
 
 
 def _silence(cfg: wn.WaveNetConfig, n: int) -> np.ndarray:
@@ -78,15 +134,19 @@ def generate(
     sample_mode: str = "argmax",
     temperature: float = 1.0,
     seed: int = 0,
+    backend: str = "fused",
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """Generate ``duration`` seconds of one stream (float32) and write it to
     ``out_path``; returns the audio.  ``start_piece``: optional µ-law codes
-    to prime with.  A prime shorter than receptive_field + max dilation
-    cannot fill the fused decode's rings: on the CPU it is decoded by the
-    plain step loop (:func:`music_tpu_torch.models.wavenet.generate_tokens`,
-    torch's own random numbers for categorical), on a CUDA device it is
-    refused."""
+    to prime with.  ``backend="fused"`` decodes in one kernel call;
+    ``backend="scan"`` runs the plain step loop
+    (:func:`music_tpu_torch.models.wavenet.generate_tokens`, torch's own
+    random numbers for categorical) on ``device``.  A prime shorter than
+    receptive_field + max dilation cannot fill the fused decode's rings: on
+    the CPU it goes to the step loop, on a CUDA device it is refused."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     device = resolve_device(device)
     params = load_params(cfg, params, checkpoint_dir, device)
     if start_piece is None:
@@ -94,23 +154,18 @@ def generate(
     prime = torch.as_tensor(np.asarray(start_piece, np.int32)[None, :], device=device)
     n_steps = int(duration * sr)
     prime_len = cfg.receptive_field + max(cfg.dilations)
-    if prime.shape[1] >= prime_len:
-        codes = wavenet_decode.generate_tokens_fused(
-            params, prime, cfg=cfg, n_steps=n_steps, n_streams=1,
-            n_stream_groups=1, dtype=torch.float32, sample_mode=sample_mode,
-            temperature=temperature, seed=seed,
-        )
-    elif device.type == "cpu":
-        codes = wn.generate_tokens(
-            params, prime, torch.Generator().manual_seed(seed), cfg=cfg, n_steps=n_steps,
-            prime_len=prime.shape[1], sample_mode=sample_mode, temperature=temperature,
-        )
-    else:
+    short = prime.shape[1] < prime_len
+    if short and backend == "fused" and device.type != "cpu":
         raise ValueError(
             f"start_piece of {prime.shape[1]} codes is shorter than receptive_field + "
             f"max dilation = {prime_len}, which the decode kernel needs; pad it (e.g. "
-            f"with silence, code {cfg.quantization_channels // 2}) or use device='cpu'"
+            f"with silence, code {cfg.quantization_channels // 2}) or use backend='scan'"
         )
+    if backend == "scan" or short:
+        codes = _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed)
+    else:
+        codes = _fused_decode(params, prime, cfg, n_steps, torch.float32, sample_mode,
+                              temperature, seed)
     audio = mu_law_decode(codes[0], cfg.quantization_channels).cpu().numpy()
     wavio.write_wav(out_path, audio, sr)
     return audio
@@ -130,30 +185,34 @@ def generate_batch(
     temperature: float = 1.0,
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
+    backend: str = "fused",
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """Serve ``n`` independent streams in one decode call; returns ``[n, T]``
     audio and, with ``out_dir``, writes ``gen_000.wav ...``.
+    ``backend="scan"`` runs the plain step loop on ``device`` instead.
 
     ``start_pieces``: optional ``[n, P]`` µ-law codes (P >= receptive_field
     + max dilation); defaults to silence.  Categorical sampling is the
     default (argmax streams from identical primes would be identical);
     stream ``i`` draws Philox stream ``(seed, i)``.  ``dtype`` defaults to
     bfloat16 (small numeric differences vs float32)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     device = resolve_device(device)
     params = load_params(cfg, params, checkpoint_dir, device)
     if start_pieces is None:
         start_pieces = _silence(cfg, n)
     prime = torch.as_tensor(np.asarray(start_pieces, np.int32), device=device)
-    prime_len = cfg.receptive_field + max(cfg.dilations)
+    prime_len = cfg.receptive_field + max(cfg.dilations) if backend == "fused" else 1
     if prime.ndim != 2 or prime.shape[0] != n or prime.shape[1] < prime_len:
-        raise ValueError(f"start_pieces must be [n={n}, >={prime_len}]")
-    n_streams, n_groups = stream_tiling(n, device)
-    codes = wavenet_decode.generate_tokens_fused(
-        params, prime, cfg=cfg, n_steps=int(duration * sr), n_streams=n_streams,
-        n_stream_groups=n_groups, dtype=dtype, sample_mode=sample_mode,
-        temperature=temperature, seed=seed,
-    )
+        raise ValueError(f"start_pieces must be [n={n}, >={prime_len}] (backend={backend!r})")
+    n_steps = int(duration * sr)
+    if backend == "scan":
+        codes = _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed)
+    else:
+        codes = _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature,
+                              seed)
     audio = mu_law_decode(codes, cfg.quantization_channels).cpu().numpy()
     if out_dir is not None:
         out_dir = Path(out_dir)

@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from music_tpu_torch.kernels import wavenet_ae_decode
-from music_tpu_torch.kernels.wavenet_decode import decode_reference
+from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_decode
 from music_tpu_torch.models import wavenet_ae
 from music_tpu_torch.models.wavenet import WaveNetConfig, forward
 from music_tpu_torch.ops.conv import full_fp32
@@ -64,21 +63,24 @@ def teacher_forced_scores(
     p32 = {k: v.float() for k, v in params.items()}
     with full_fp32():
         logits = forward(p32, seq[:, P - cfg.receptive_field:], cfg)  # [B, n, Q]
-    return _with_noise(logits, 0, sample_mode, temperature, seed)
+    return with_decode_noise(logits, 0, sample_mode, temperature, seed)
 
 
 def reference_scores(
     inputs: tuple, tokens: torch.Tensor, cfg: WaveNetConfig, *, dtype: torch.dtype,
     sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0,
+    kernel=wavenet_decode, **options,
 ) -> torch.Tensor:
     """Scores ``[B, n - 1, Q]`` the kernel's plain version
-    (:func:`~music_tpu_torch.kernels.wavenet_decode.decode_reference`, with
-    its ``dtype`` rounding points) gives ``tokens[:, 1:]``, teacher-forced
-    from the kernel inputs ``inputs = (weights, ring, s0, prev0)``; with the
-    same Philox noise as the decode in categorical mode."""
-    logits = decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1], dtype=dtype,
-                              forced=tokens)
-    return _with_noise(logits, 1, sample_mode, temperature, seed)
+    (``kernel.decode_reference``: :mod:`~music_tpu_torch.kernels.wavenet_decode`'s
+    by default, or :mod:`~music_tpu_torch.kernels.wavenet_decode_hbm`'s with
+    its ``options`` such as ``int8_matmul``; with its ``dtype`` rounding
+    points) gives ``tokens[:, 1:]``, teacher-forced from the kernel inputs
+    ``inputs = (weights, ring, s0, prev0)``; with the same Philox noise as
+    the decode in categorical mode."""
+    logits = kernel.decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1], dtype=dtype,
+                                     forced=tokens, **options)
+    return with_decode_noise(logits, 1, sample_mode, temperature, seed)
 
 
 @torch.no_grad()
@@ -103,20 +105,20 @@ def ae_teacher_forced_scores(
 
 
 def ae_reference_scores(inputs: tuple, tokens: torch.Tensor, cfg: wavenet_ae.WaveNetAEConfig,
-                        *, dtype: torch.dtype) -> torch.Tensor:
+                        *, dtype: torch.dtype, kernel=wavenet_ae_decode) -> torch.Tensor:
     """Logits ``[B, n - 1, Q]`` the AE kernel's plain version
-    (:func:`~music_tpu_torch.kernels.wavenet_ae_decode.decode_reference`,
-    with its ``dtype`` rounding points) gives ``tokens[:, 1:]``,
-    teacher-forced from the kernel inputs ``inputs`` (as
-    :func:`~music_tpu_torch.kernels.wavenet_ae_decode.prepare` returns
-    them)."""
-    return wavenet_ae_decode.decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1],
-                                              dtype=dtype, forced=tokens)
+    (``kernel.decode_reference``: :mod:`~music_tpu_torch.kernels.wavenet_ae_decode`'s
+    or :mod:`~music_tpu_torch.kernels.wavenet_ae_decode_hbm`'s, with its
+    ``dtype`` rounding points) gives ``tokens[:, 1:]``, teacher-forced from
+    the kernel inputs ``inputs`` (as ``kernel.prepare`` returns them)."""
+    return kernel.decode_reference(*inputs, cfg=cfg, n_steps=tokens.shape[1], dtype=dtype,
+                                   forced=tokens)
 
 
-def _with_noise(logits, first_step, sample_mode, temperature, seed):
-    """``logits [B, n, Q]`` of tokens ``first_step ..``, plus the fused
-    decode's Gumbel noise in categorical mode."""
+def with_decode_noise(logits, first_step, sample_mode, temperature, seed):
+    """``logits [B, n, Q]`` of tokens ``first_step ..`` (a torch tensor),
+    plus the fused decode's Gumbel noise in categorical mode: their argmax
+    is the token the decode draws."""
     if sample_mode == "argmax":
         return logits
     B, n, q = logits.shape

@@ -173,3 +173,82 @@ def test_cli_subprocess_imports_no_jax(tmp_path):
     assert wavio.read_wav(tmp_path / "one.wav")[0].shape == (64,)
     for i in range(2):
         assert wavio.read_wav(tmp_path / "many" / f"gen_{i:03d}.wav")[0].shape == (64,)
+
+
+WIDE_JSON = dict(TINY_JSON, dilations=[1, 2] * 9, residual_channels=16)
+
+
+@pytest.mark.parametrize("widths,streaming", [
+    ({}, False), (dict(residual_channels=64, dilation_channels=64, skip_channels=1024), True)])
+def test_routing_rule_shipped_and_scaled(widths, streaming):
+    """The shipped model (5.08 MB of f32 weights) stays on the resident
+    kernel; the 4.4x-scaled one (19.1 MB) goes to the weight-streaming
+    kernel."""
+    from music_tpu_torch.core.config import load_params_dir
+
+    shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet")["wavenet_params"]
+    cfg = twn.WaveNetConfig.from_json({**shipped, **widths})
+    nbytes = 4 * sum(int(np.prod(s)) for s in twn.param_shapes(cfg).values())
+    assert nbytes == (19_136_512 if streaming else 5_079_040)
+    assert tgen.streams_weights(nbytes) is streaming
+
+
+def test_generate_on_streaming_kernel_matches_jax_generate(tmp_path, monkeypatch):
+    """With the threshold at 0 the port's generate() on the wide config
+    decodes through the weight-streaming kernel's wrapper (and not the
+    resident one's), as JAX's generate() takes its HBM kernel on this
+    config: tie-aware at 1e-5 on the JAX model; exact equality printed."""
+    from music_tpu.generate import wavenet_generate as jgen
+    from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
+
+    jcfg, tcfg = jwn.WaveNetConfig.from_json(WIDE_JSON), twn.WaveNetConfig.from_json(WIDE_JSON)
+    jp = jwn.init_params(jax.random.PRNGKey(11), jcfg)
+    tp = twn.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, cfg=tcfg)
+    calls = []
+    streaming = wavenet_decode_hbm.generate_tokens_fused_hbm
+    monkeypatch.setattr(tgen, "STREAMING_MIN_BYTES", 0)
+    monkeypatch.setattr(wavenet_decode_hbm, "generate_tokens_fused_hbm",
+                        lambda *a, **k: calls.append(k["n_streams"]) or streaming(*a, **k))
+    monkeypatch.setattr(wavenet_decode, "generate_tokens_fused",
+                        lambda *a, **k: pytest.fail("the resident kernel was chosen"))
+    ours = tgen.generate(cfg=tcfg, params=tp, out_path=tmp_path / "port.wav", sr=SR,
+                         duration=0.04, device="cpu")
+    ref = jgen.generate(cfg=jcfg, params=jp, out_path=tmp_path / "jax.wav", sr=SR,
+                        duration=0.04)
+    assert calls == [1] and ours.shape == ref.shape == (40,)
+    P = tcfg.receptive_field + max(tcfg.dilations)
+    prime = np.full((1, P), 16, np.int32)
+    fwd = jax.jit(functools.partial(jwn.forward, cfg=jcfg))
+
+    def logits_fn(tokens):
+        seq = np.concatenate([prime, np.asarray(tokens)[:, :-1]], axis=1)
+        return np.asarray(fwd(jp, jnp.asarray(seq[:, P - jcfg.receptive_field:])))
+
+    codes = _codes_of(ours)[None]
+    report = tie_aware_check(codes, logits_fn, tol=1e-5)
+    assert report["ok"], report
+    print("exact equality with JAX generate:", (codes == _codes_of(ref)[None]).mean(), report)
+
+
+def test_scan_backend(tmp_path):
+    """backend="scan" runs the plain step loop on the requested device for
+    generate and generate_batch (the same tokens as models.wavenet.
+    generate_tokens); a short start_piece on a device other than the CPU
+    is refused with a message naming backend='scan'; an unknown backend
+    raises."""
+    _, tp = _params(5)
+    prime = np.full((1, PRIME_LEN), 16, np.int32)
+    want = twn.generate_tokens(tp, torch.from_numpy(prime), torch.Generator().manual_seed(0),
+                               cfg=TTINY, n_steps=int(DURATION * SR), prime_len=PRIME_LEN)
+    one = tgen.generate(cfg=TTINY, params=tp, out_path=tmp_path / "s.wav", sr=SR,
+                        duration=DURATION, backend="scan", device="cpu")
+    np.testing.assert_array_equal(_codes_of(one), want[0].numpy())
+    many = tgen.generate_batch(cfg=TTINY, params=tp, n=2, sr=SR, duration=DURATION,
+                               sample_mode="argmax", backend="scan", device="cpu")
+    np.testing.assert_array_equal(_codes_of(many[1]), want[0].numpy())
+    with pytest.raises(ValueError, match="backend='scan'"):
+        tgen.generate(cfg=TTINY, params=tp, out_path=tmp_path / "x.wav", sr=SR,
+                      duration=DURATION, start_piece=prime[0, :10], device="meta")
+    with pytest.raises(ValueError, match="backend"):
+        tgen.generate(cfg=TTINY, params=tp, out_path=tmp_path / "x.wav", sr=SR,
+                      duration=DURATION, backend="pallas", device="cpu")

@@ -207,3 +207,50 @@ def test_cli_file_and_directory_subprocess(tmp_path):
         np.testing.assert_array_equal(_codes_of(got), _codes_of(want[i]))
     # the JAX package reads the port's wavs as its own
     np.testing.assert_array_equal(jwavio.read_wav(tmp_path / "rec.wav")[0], one)
+
+
+@pytest.mark.parametrize("widths,streaming", [
+    ({}, False), (dict(de_residual_channel=64, de_dilation_channel=64, de_skip_channel=1024),
+                  True)])
+def test_routing_rule_shipped_and_scaled_decoder(widths, streaming):
+    """The rule counts the decoder parameters that enter the kernel: the
+    shipped AE decoder (5.08 MB in f32) stays on the resident kernel, the
+    scaled one (19.1 MB) goes to the weight-streaming kernel."""
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.generate.wavenet_generate import streams_weights
+    from music_tpu_torch.kernels.wavenet_ae_decode_hbm import DECODER_KEYS
+
+    shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet_autoencoder")
+    cfg = tae.WaveNetAEConfig.from_json({**shipped["model_params"], **widths})
+    shapes = tae.param_shapes(cfg)
+    nbytes = 4 * sum(int(np.prod(shapes[k])) for k in DECODER_KEYS)
+    assert nbytes == (19_136_512 if streaming else 5_079_040)
+    assert streams_weights(nbytes) is streaming
+
+
+def test_generate_batch_on_streaming_kernel_matches_jax(monkeypatch):
+    """With the threshold at 0, generate_batch decodes through the
+    weight-streaming kernel's wrapper (and not the resident one's):
+    tie-aware at 1e-5 on the plain f32 decoder; exact equality with the
+    JAX weight-streaming kernel (interpret mode) printed."""
+    from music_tpu.kernels import wavenet_ae_decode_hbm as jh
+    from music_tpu_torch.generate import wavenet_generate
+    from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_ae_decode_hbm
+
+    jp, tp = _params(6)
+    src = _clips(6, 3, 100)
+    calls = []
+    streaming = wavenet_ae_decode_hbm.generate_tokens_fused_hbm
+    monkeypatch.setattr(wavenet_generate, "STREAMING_MIN_BYTES", 0)
+    monkeypatch.setattr(wavenet_ae_decode_hbm, "generate_tokens_fused_hbm",
+                        lambda *a, **k: calls.append(k["n_streams"]) or streaming(*a, **k))
+    monkeypatch.setattr(wavenet_ae_decode, "generate_tokens_fused",
+                        lambda *a, **k: pytest.fail("the resident kernel was chosen"))
+    ours = tgen.generate_batch(cfg=TTINY, params=tp, source_audios=src, sr=SR, duration=0.08,
+                               device="cpu")
+    assert calls == [3] and ours.shape == (3, 80)
+    tokens = jnp.asarray(np.stack([mu_law_encode_np(r, 32) for r in src]))
+    ref = np.asarray(jh.generate_tokens_fused_hbm(
+        jp, jae.encode(jp, tokens, JTINY), tokens[:, :PRIME_LEN], cfg=JTINY, n_steps=80,
+        interpret=True))
+    _check(tp, src, _codes_of(ours), "generate_batch on the streaming kernel", ref)
