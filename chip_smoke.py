@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all four CUDA kernels from ``music_tpu_torch/csrc/`` (one nvcc per
-   source, started together);
+2. build all four CUDA kernels and the L2 read probe from
+   ``music_tpu_torch/csrc/`` (one nvcc per source, started together);
 
 WaveNet (kernel ``wavenet_decode``):
 
@@ -20,8 +20,11 @@ WaveNet (kernel ``wavenet_decode``):
    f32) and 32 streams (categorical, bf16), 0.25 s each; launch counts,
    wav lengths and codes checked, and a tie-aware check of the first 512
    steps against the plain model on the card;
-5. samples/s of the kernel (2048 steps) and of its plain version (256
-   steps) at the main path's shapes, timed with CUDA events;
+5. samples/s of the kernel (2048 steps) and of its plain version (64
+   steps) at the main path's shapes, timed with CUDA events; the
+   phase-timed build of the kernel (clock64 spans per phase, one f32
+   stream); ``generate(backend="scan")`` on the card at the tiny config,
+   tie-aware against the fused path's plain version and the f32 model;
 
 WaveNet autoencoder (kernel ``wavenet_ae_decode``):
 
@@ -64,13 +67,15 @@ at the 4.4x-scaled width (Cr = Cd = 64, Cs = 1024: 19.1 MB of f32 weights):
     model; int8 weights on the 32 clips against their plain version;
 14. samples/s of both kernels (2048 steps) and their plain versions (128
     steps) in each mode; then both sides of the routing rule, kernels only:
-    each resident kernel at the scaled width and each weight-streaming one
-    at the shipped width (WaveNet: 1 f32 stream and 32 bf16 categorical;
-    AE: 1 and 32 f32 streams; every f32 case first checked tie-aware against
-    the f32 model over 512 steps), each timed against the kernel the rule
-    picks on the same inputs;
+    each resident kernel at the scaled width (tiled by its ``max_streams``)
+    and each weight-streaming one at the shipped width (WaveNet: 1 f32
+    stream and 32 bf16 categorical; AE: 1 and 32 f32 streams; every f32
+    case first checked tie-aware against the f32 model over 512 steps),
+    each timed against the kernel the rule picks on the same inputs;
 
-15. a JSON line describing each kernel (times in ms per decode step, with
+15. one thread block's L2 read rate (``csrc/l2_probe.cu``) at the bytes a
+    block of each timed case moves a step, and each case's one-SM floor;
+16. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``),
     then the device JSON as the last line.
 
@@ -80,6 +85,7 @@ full float32 (TF32 off, see ``music_tpu_torch.ops.conv.full_fp32``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -102,9 +108,11 @@ TOL_BF16 = 2e-3
 # (tests/test_torch_wavenet_ae_decode.py; the conditioning biases are bf16
 # too), so twice 2e-3, times 2
 TOL_AE_BF16 = 8e-3
-TIMED_STEPS, PLAIN_STEPS = 2048, 256
+TIMED_STEPS, PLAIN_STEPS = 2048, 64  # the plain versions are no yardstick of speed
+PROBE_REPS = 10  # passes over the array in the timed launch of the L2 probe
 PLAIN_STEPS_SCALED = 128  # the plain versions take 5-50 ms a step at the scaled width
 KERNELS = ("wavenet_decode", "wavenet_ae_decode", "wavenet_decode_hbm", "wavenet_ae_decode_hbm")
+PROBE = "l2_probe"  # csrc/l2_probe.cu: one block's L2 read rate, built with the kernels
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM bytes/s, and
 # FLOP/s of the units the kernels' float32 FMAs run on, by weight dtype
 # (bf16 operands could run on the tensor cores)
@@ -175,6 +183,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def block_step_bytes(w: dict, S: int, L: int, Cr: int, cond_elems: int = 0) -> int:
+    """Bytes one thread block moves a decode step: every weight pack but the
+    embeddings (of which it reads two rows), int8 scale rows included, read
+    once; and per stream its L ring taps read and written and, for the
+    autoencoder, its ``cond_elems`` conditioning values read."""
+    weights = nbytes(*(v for k, v in w.items() if k not in ("ecur", "eprev")))
+    return weights + S * (2 * L * Cr + cond_elems) * w["ecur"].element_size()
+
+
 def main() -> None:
     if not (ROOT / "music_tpu_torch").is_dir():
         fail(f"run from the root of a checkout (no music_tpu_torch/ beside {__file__})")
@@ -189,6 +206,7 @@ def main() -> None:
     from music_tpu_torch.core import checkpoint
     from music_tpu_torch.core.config import load_params_dir
     from music_tpu_torch.data import wavio
+    from music_tpu_torch.generate import wavenet_generate
     from music_tpu_torch.generate.wavenet_generate import stream_tiling
     from music_tpu_torch.kernels import _build
     from music_tpu_torch.kernels import wavenet_ae_decode as aedec
@@ -213,11 +231,11 @@ def main() -> None:
 
     # -- 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
+    _build.build([*KERNELS, PROBE])
     for module in (dec, aedec, hbm, aehbm):
         module._library()
-    print(f"[2] built {len(KERNELS)} libraries in {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    print(f"[2] built {len(KERNELS) + 1} libraries in {time.perf_counter() - t0:.1f} s")
+    for name in (*KERNELS, PROBE):
         lib_path = _build.library_path(name)
         built = _build.BUILD_SECONDS.get(name)
         print(f"[2] {lib_path.name}: "
@@ -233,6 +251,7 @@ def main() -> None:
     sys.stdout.flush()
 
     worst_deficit = dict.fromkeys(KERNELS, 0.0)  # vs the plain version at its precision
+    floors = []  # every timed case: (label, kernel ms a step, bytes a block moves a step)
 
     def check(name, tokens, scores_fn, tol, *, kernel=None):
         """Tie-aware check; with ``kernel``, a check at that kernel's own
@@ -393,6 +412,8 @@ def main() -> None:
         # one launch of TIMED_STEPS steps reads every input once (weights,
         # rings, first tokens) and writes the rings and the tokens once
         w, ring, s0, prev0 = inputs
+        floors.append((f"B1 {label}", ker, block_step_bytes(w, S, full.n_blocks,
+                                                            full.residual_channels)))
         launch_bytes = (nbytes(*w.values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
                         + 4 * rows * TIMED_STEPS)
         bounds[label] = bound(launch_bytes / (TIMED_STEPS - 1), 2 * macs * rows,
@@ -407,6 +428,42 @@ def main() -> None:
             print(f"[5] CLI {run}: kernel {kernel_s:.3f} s of {walls[run]:.3f} s wall "
                   f"({100 * kernel_s / walls[run]:.0f}%, cold call, timing above)", flush=True)
     b1 = {"times": times["1 stream f32 argmax"], "bound": bounds["1 stream f32 argmax"]}
+
+    # the phase-timed build of the kernel (f32, one stream): block 0's
+    # clock64 cycles per phase, as shares of the launch's CUDA-event time
+    inputs = dec.prepare(fp, silence[:1], cfg=full, n_streams=1, n_stream_groups=1)
+    spans = torch.zeros(len(dec.SPAN_PHASES), dtype=torch.int64, device=dev)
+    spanned = timed(lambda n: dec.decode_cuda(*inputs, cfg=full, n_steps=n, n_streams=1,
+                                              spans=spans), TIMED_STEPS, 1)
+    cycles = spans.tolist()
+    print(f"[5] phases of a step, 1 stream f32 (timed build {spanned * 1e3:.1f} us/step, "
+          f"{cycles[-1] / (spanned * 1e-3 * (TIMED_STEPS - 1)) / 1e9:.2f} GHz): "
+          + ", ".join(f"{name} {spanned * 1e3 * c / cycles[-1]:.2f} us"
+                      for name, c in zip(dec.SPAN_PHASES[:-1], cycles))
+          + f"  [{card}]", flush=True)
+
+    # the plain step loop (backend="scan") on the card, tiny config: its
+    # tokens pass the tie-aware check against the fused path's plain version
+    # and against the f32 model
+    tiny_silence = torch.full((1, P), tiny.quantization_channels // 2, dtype=torch.int32,
+                              device=dev)
+    gen_codes = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for backend in ("scan", "fused"):
+            path = Path(tmp) / f"{backend}.wav"
+            wavenet_generate.generate(cfg=tiny, params=params, out_path=path,
+                                      duration=48 / 16000, backend=backend, device="cuda")
+            gen_codes[backend] = torch.from_numpy(
+                pcm_codes(path, tiny.quantization_channels))[None].to(dev)
+    scan = gen_codes["scan"]
+    inputs = dec.prepare(params, tiny_silence, cfg=tiny, n_streams=1)
+    check("[5] generate(backend='scan') on the card vs the fused path's plain version",
+          scan[:, 1:], lambda t: reference_scores(inputs, scan, tiny, dtype=torch.float32),
+          TOL_F32)
+    check("[5] generate(backend='scan') on the card vs the f32 model", scan,
+          model_scores(params, tiny_silence, tiny), TOL_F32)
+    print(f"[5] scan and fused generate agree on {int((scan == gen_codes['fused']).sum())}/"
+          f"{scan.numel()} tokens", flush=True)
 
     # -- 6. AE kernel vs plain on the card, tiny config
     ae_tiny = ae.WaveNetAEConfig(
@@ -527,7 +584,7 @@ def main() -> None:
     ae_times, ae_bounds = {}, {}
     for label, run, rows in (("1 stream f32", "one clip", 1),
                              ("32 streams f32", "32 clips", n_clips)):
-        S, G = stream_tiling(rows, dev)
+        S, G = stream_tiling(rows, dev, aedec.max_streams(ae_full))
         inputs = aedec.prepare(afp, ae_enc[:rows], ae_prime[:rows], cfg=ae_full, n_streams=S,
                                n_stream_groups=G)
         kw = dict(cfg=ae_full, dtype=torch.float32)
@@ -540,6 +597,9 @@ def main() -> None:
         # the tables only the rows of the frames its steps reach; it writes
         # the rings and the tokens once
         w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
+        floors.append((f"B3 {label}", ker, block_step_bytes(
+            w, S, ae_full.n_blocks, ae_full.de_residual_channel,
+            cond_fg.shape[2] + cond_post.shape[2])))
         first = ae.frame_of(pos0.long(), ae_full.en_pool_kernel_size, cond_fg.shape[1])
         last = ae.frame_of(pos0.long() + TIMED_STEPS - 2, ae_full.en_pool_kernel_size,
                            cond_fg.shape[1])
@@ -842,6 +902,8 @@ def main() -> None:
         plain = timed(lambda n: hbm.decode_reference(*inputs, n_steps=n, **kw),
                       PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0 = inputs
+        floors.append((f"B2 {label}", ker, block_step_bytes(w, S, scaled.n_blocks,
+                                                            scaled.residual_channels)))
         launch_bytes = (nbytes(*w.values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
                         + 4 * rows * TIMED_STEPS)
         peak = "int8" if q8 else str(dtype).removeprefix("torch.")
@@ -863,6 +925,9 @@ def main() -> None:
         plain = timed(lambda n: aehbm.decode_reference(*inputs, n_steps=n, **kw),
                       PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
+        floors.append((f"B4 {label}", ker, block_step_bytes(
+            w, S, ae_scaled.n_blocks, ae_scaled.de_residual_channel,
+            cond_fg.shape[2] + cond_post.shape[2])))
         pool, F = ae_scaled.en_pool_kernel_size, cond_fg.shape[1]
         rows_read = int((ae.frame_of(pos0.long() + TIMED_STEPS - 2, pool, F)
                          - ae.frame_of(pos0.long(), pool, F) + 1).sum())
@@ -878,12 +943,13 @@ def main() -> None:
               f"{100 * b[0] / ker:.3f}% of the kernel's)  [{card}]", flush=True)
 
     # the routing rule's two sides, kernels only: each resident kernel at the
-    # scaled width (its carve fits there up to 8 streams a block) and each
+    # scaled width (its carve fits there 2 f32 or 4 bf16 streams a block) and each
     # weight-streaming one at the shipped width, on the inputs of the kernel
     # the rule picks, timed against it
     def off_route(label, name, mod, cfg_, args, dtype, opts, model_fn, routed):
         rows = args[-1].shape[0]
-        S, G = stream_tiling(rows, dev)
+        cap = mod.max_streams(cfg_, dtype) if mod in (dec, aedec) else mod.max_streams(cfg_)
+        S, G = stream_tiling(rows, dev, cap)
         inputs = mod.prepare(*args, cfg=cfg_, n_streams=S, n_stream_groups=G, dtype=dtype, **opts)
         kw = dict(cfg=cfg_, dtype=dtype, **opts)
         if model_fn is not None:  # off its route the kernel still computes the model
@@ -922,7 +988,38 @@ def main() -> None:
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 15. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 15. one block's L2 read rate (csrc/l2_probe.cu) at the bytes each
+    # timed case's blocks move a step, and that case's one-SM floor: those
+    # bytes over that rate (every block re-reads its weights each step)
+    probe = ctypes.CDLL(str(_build.library_path(PROBE)))
+    probe.l2_probe.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_void_p]
+    probe.l2_probe.restype = ctypes.c_int
+    sink = torch.empty(512, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for size in sorted({-(-b // 16) * 16 for _, _, b in floors}):
+        data = torch.ones(size // 4, device=dev)
+        ms = []  # the first launch brings the array into L2; the fastest of the rest counts
+        for _ in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            if probe.l2_probe(data.data_ptr(), size // 16, PROBE_REPS, sink.data_ptr(), stream):
+                fail("the L2 probe did not launch")
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        rates[size] = PROBE_REPS * size / (min(ms[1:]) * 1e-3)
+        print(f"[15] L2 probe, one block reads {size} B: {rates[size] / 1e9:.1f} GB/s  [{card}]",
+              flush=True)
+        del data
+    for label, ker, b in floors:
+        rate = rates[-(-b // 16) * 16]
+        print(f"[15] {label}: kernel {ker * 1e3:.1f} us/step, one-SM floor "
+              f"{b / rate * 1e6:.1f} us/step ({b} B a block at {rate / 1e9:.1f} GB/s), "
+              f"kernel {ker * 1e-3 * rate / b:.2f}x the floor  [{card}]", flush=True)
+
+    # -- 16. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
     # PyTorch call computes any of the decodes)
     described = [

@@ -88,7 +88,7 @@ def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed
         S, G = stream_tiling(n, device, wavenet_ae_decode_hbm.max_streams(cfg))
         return wavenet_ae_decode_hbm.generate_tokens_fused_hbm(
             params, encoding, prime, n_streams=S, n_stream_groups=G, **kw)
-    S, G = stream_tiling(n, device)
+    S, G = stream_tiling(n, device, wavenet_ae_decode.max_streams(cfg, dtype))
     return wavenet_ae_decode.generate_tokens_fused(
         params, encoding, prime, n_streams=S, n_stream_groups=G, **kw)
 

@@ -101,7 +101,7 @@ def _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature, 
         S, G = stream_tiling(n, device, wavenet_decode_hbm.max_streams(cfg))
         return wavenet_decode_hbm.generate_tokens_fused_hbm(
             params, prime, n_streams=S, n_stream_groups=G, **kw)
-    S, G = stream_tiling(n, device)
+    S, G = stream_tiling(n, device, wavenet_decode.max_streams(cfg, dtype))
     return wavenet_decode.generate_tokens_fused(params, prime, n_streams=S, n_stream_groups=G,
                                                 **kw)
 

@@ -31,7 +31,10 @@ import ctypes
 import torch
 
 from music_tpu_torch.kernels import _build
-from music_tpu_torch.kernels.wavenet_decode import SUPPORTED_STREAMS, ring_offsets
+from music_tpu_torch.kernels.wavenet_decode import (
+    ARGTYPES, SMEM_LIMIT, SUPPORTED_STREAMS, chain_packs, check_aligned, check_tile, launch_args,
+    ring_offsets, smem_layout,
+)
 from music_tpu_torch.models.wavenet_ae import WaveNetAEConfig, cond_tables, frame_of, gate
 from music_tpu_torch.ops.conv import conv1x1, dilated_causal_conv, full_fp32, token_causal_conv
 
@@ -40,6 +43,16 @@ LAUNCHES = 0
 launch; the CPU path never does)."""
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def max_streams(cfg: WaveNetAEConfig, dtype: torch.dtype = torch.float32) -> int:
+    """The most streams per block (of :data:`SUPPORTED_STREAMS`) whose
+    carve (:func:`.wavenet_decode.smem_layout` with the conditioning rows
+    in its stages) fits :data:`SMEM_LIMIT` in ``dtype``; 0 when none does."""
+    dims = (cfg.n_blocks, cfg.de_residual_channel, cfg.de_dilation_channel,
+            cfg.de_skip_channel, cfg.quantization_channel)
+    return max((s for s in SUPPORTED_STREAMS
+                if smem_layout(*dims, s, dtype, ae=True)[1] <= SMEM_LIMIT), default=0)
 
 
 def _check_supported(cfg: WaveNetAEConfig) -> None:
@@ -226,13 +239,8 @@ def decode_reference(
     return out
 
 
-_ARGTYPES = (
-    [ctypes.c_int] * 11          # dtype, S, G, L, Cr, Cd, Cs, Q, ring_len, F, pool
-    + [ctypes.c_void_p] * 14     # dil, ring, s0, prev0, pos0, ecur, eprev, fg, dense, skip,
-                                 # post1, post2, cond_fg, cond_post
-    + [ctypes.c_int]             # n_steps
-    + [ctypes.c_void_p, ctypes.c_void_p]  # out, stream
-)
+# B1's arguments up to the pointers, then n_steps and the stream (argmax only)
+_ARGTYPES = (*ARGTYPES[:7], ctypes.c_int, ctypes.c_void_p)
 
 
 def _library() -> ctypes.CDLL:
@@ -251,7 +259,8 @@ def decode_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (same arguments and
     result as :func:`decode_reference`).  Raises on anything it does not
-    take, and when the launch is refused."""
+    take, a tile larger than :func:`max_streams` included, and when the
+    launch is refused."""
     global LAUNCHES
     _check_supported(cfg)
     L, Cr, Cd, Cs, Q = (
@@ -265,6 +274,7 @@ def decode_cuda(
                          f"(supported: {SUPPORTED_STREAMS})")
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype}")
+    offsets, nbytes = check_tile((L, Cr, Cd, Cs, Q), n_streams, dtype, ae=True)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
     device = ring.device
@@ -291,26 +301,25 @@ def decode_cuda(
     if int(pos0.min()) < 0 or int(pos0.max()) + n_steps >= 2**31:
         raise ValueError("clock pos0 + n_steps must stay within [0, 2**31)")
     ring = ring.to(dtype=dtype, copy=True).contiguous()  # the kernel updates it in place
-    s0, prev0, pos0 = s0.contiguous(), prev0.contiguous(), pos0.contiguous()
-    dil = torch.tensor(cfg.dilations, dtype=torch.int32, device=device)
-    out = torch.empty((B, n_steps), dtype=torch.int32, device=device)
+    ptrs = {k: w[k] for k in shapes}
+    ptrs["fg"], ptrs["dense"] = chain_packs(w["fg"], w["dense"])
+    check_aligned({**ptrs, "cond_fg": cond_fg, "cond_post": cond_post, "ring": ring})
+    ptrs.update(ring=ring, s0=s0.contiguous(), prev0=prev0.contiguous(), pos0=pos0.contiguous(),
+                cond_fg=cond_fg, cond_post=cond_post,
+                dil=torch.tensor(cfg.dilations, dtype=torch.int32, device=device),
+                out=torch.empty((B, n_steps), dtype=torch.int32, device=device))
+    dims_a, offs_a, ptrs_a = launch_args(
+        [L, Cr, Cd, Cs, Q, ring_len, F, cfg.en_pool_kernel_size], offsets, ptrs)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.wavenet_ae_decode(
-            _DTYPES[dtype], n_streams, B // n_streams, L, Cr, Cd, Cs, Q, ring_len, F,
-            cfg.en_pool_kernel_size,
-            dil.data_ptr(), ring.data_ptr(), s0.data_ptr(), prev0.data_ptr(), pos0.data_ptr(),
-            w["ecur"].data_ptr(), w["eprev"].data_ptr(), w["fg"].data_ptr(),
-            w["dense"].data_ptr(), w["skip"].data_ptr(), w["post1"].data_ptr(),
-            w["post2"].data_ptr(), cond_fg.data_ptr(), cond_post.data_ptr(),
-            n_steps, out.data_ptr(), stream,
-        )
+        rc = lib.wavenet_ae_decode(_DTYPES[dtype], n_streams, B // n_streams, dims_a, offs_a,
+                                   nbytes, ptrs_a, n_steps, stream)
     if rc != 0:
         raise RuntimeError(
             f"wavenet_ae_decode launch failed: {lib.wavenet_ae_decode_error(rc).decode()}")
     LAUNCHES += 1
-    return out
+    return ptrs["out"]
 
 
 def generate_tokens_fused(

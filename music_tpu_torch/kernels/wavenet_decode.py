@@ -39,6 +39,11 @@ from music_tpu_torch.ops.philox import decode_uniforms, gumbel
 
 SUPPORTED_STREAMS = (1, 2, 4, 8, 16)
 """Streams per thread block the kernel is compiled for."""
+SMEM_LIMIT = 232_448
+"""Shared memory one block can have on an H100 (227 KB)."""
+MAX_STAGES = 4
+"""Most layer stages the kernel rings (``kMaxStages`` in
+``csrc/decode_resident.cuh``); it needs at least 2."""
 
 LAUNCHES = 0
 """Kernel launches so far in this process (the CUDA wrapper adds one per
@@ -55,6 +60,80 @@ def ring_offsets(cfg: WaveNetConfig) -> tuple[list[int], int]:
         offs.append(o)
         o += d
     return offs, o
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int, dtype: torch.dtype,
+                ae: bool = False) -> tuple[list[int], int]:
+    """The resident kernels' shared-memory carve for ``S`` streams per
+    block: ``(offsets, bytes)``, as ``csrc/decode_resident.cuh`` reads
+    them: the offsets in floats of ``zall, h1, h2, ptap`` and the stages
+    (``x`` is at 0), the stage stride in floats, the stage count, and the
+    offset of the ints.
+
+    Per stream x ``[Cr]``, zall ``[L*Cd]``, h1 ``[Cs]`` (then the logits
+    ``[Q]``), h2 ``[Cs]`` and two layers' tap halves of fg ``[2, 2Cd]`` in
+    float32; then as many stages as fit, 2 to :data:`MAX_STAGES`, each one
+    layer's chain operands in ``dtype``: its rows of :func:`chain_packs`
+    (fg ``[2Cd, 2Cr + pad]``, dense ``[Cr, Cd + pad]``), every stream's tap
+    ``[Cr]`` and, for the autoencoder (``ae``), its conditioning row
+    ``[2Cd]``; then ``cur, prev, clock`` per stream and ``dil, off, slot``
+    per layer.  When 2 stages do not fit, ``bytes`` exceeds
+    :data:`SMEM_LIMIT`."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    pad = 16 // esize
+    elems = 2 * Cd * (2 * Cr + pad) + Cr * (Cd + pad) + S * Cr + (2 * S * Cd if ae else 0)
+    stage = _pad4(-(-esize * elems // 4))
+    sizes = [S * Cr, S * L * Cd, S * max(Cs, Q), S * Cs, 2 * S * 2 * Cd]  # x .. ptap
+    offsets, o = [], 0
+    for n in sizes:
+        offsets.append(o)
+        o += _pad4(n)
+    ints = 4 * (3 * S + 3 * L)
+    n_stages = 2
+    while n_stages < MAX_STAGES and 4 * (o + (n_stages + 1) * stage) + ints <= SMEM_LIMIT:
+        n_stages += 1
+    end = o + n_stages * stage
+    return offsets[1:] + [o, stage, n_stages, end], 4 * end + ints
+
+
+def max_streams(cfg: WaveNetConfig, dtype: torch.dtype = torch.float32) -> int:
+    """The most streams per block (of :data:`SUPPORTED_STREAMS`) whose
+    carve fits :data:`SMEM_LIMIT` in ``dtype``; 0 when none does."""
+    dims = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
+            cfg.quantization_channels)
+    return max((s for s in SUPPORTED_STREAMS if smem_layout(*dims, s, dtype)[1] <= SMEM_LIMIT),
+               default=0)
+
+
+def chain_packs(fg: torch.Tensor, dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer chain's weights as the kernel stages them: ``fg [L, 2Cr,
+    2Cd]`` and ``dense [L, Cd, Cr]`` transposed to one row per output
+    column, each row padded by 16 bytes (``[L, 2Cd, 2Cr + pad]``, ``[L, Cr,
+    Cd + pad]``), so that a chain lane reads its columns with 16-byte loads
+    that fall in distinct shared-memory banks."""
+    pad = 16 // fg.element_size()
+    return tuple(torch.nn.functional.pad(t.transpose(1, 2), (0, pad)).contiguous()
+                 for t in (fg, dense))
+
+
+def check_tile(dims: tuple, n_streams: int, dtype: torch.dtype, ae: bool = False):
+    """The carve of a tile of ``n_streams`` (``dims = (L, Cr, Cd, Cs, Q)``),
+    refused before any launch when it exceeds :data:`SMEM_LIMIT` or when the
+    widths break the kernel's 16-byte copies and loads.  Returns ``(offsets,
+    bytes)``."""
+    L, Cr, Cd, Cs, Q = dims
+    offsets, nbytes = smem_layout(*dims, n_streams, dtype, ae)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{n_streams} streams per block need {nbytes} bytes of shared memory "
+                         f"(limit {SMEM_LIMIT}); take at most max_streams()")
+    if Cr % 8 or Cd % 8 or Cs % 8 or Q % 8:
+        raise ValueError(f"the kernel needs Cr, Cd, Cs and Q multiples of 8, got "
+                         f"Cr={Cr}, Cd={Cd}, Cs={Cs}, Q={Q}")
+    return offsets, nbytes
 
 
 def _check_supported(cfg: WaveNetConfig) -> None:
@@ -221,32 +300,65 @@ def decode_reference(
     return out
 
 
-_ARGTYPES = (
-    [ctypes.c_int] * 9          # dtype, S, G, L, Cr, Cd, Cs, Q, ring_len
-    + [ctypes.c_void_p] * 11    # dil, ring, s0, prev0, ecur, eprev, fg, dense, skip, post1, post2
+ARGTYPES = (
+    [ctypes.c_int] * 3                      # dtype, S, G
+    + [ctypes.c_void_p] * 2                 # dims [8], carve offsets [8] (host int32 arrays)
+    + [ctypes.c_int, ctypes.c_void_p]       # smem bytes, device pointers [16] (POINTERS)
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint32]  # n_steps, mode, temp, seed
-    + [ctypes.c_void_p, ctypes.c_void_p]  # out, stream
+    + [ctypes.c_void_p]                     # stream
 )
+"""ctypes argument types of the C entry ``wavenet_decode``."""
+POINTERS = ("dil", "ring", "s0", "prev0", "pos0", "ecur", "eprev", "fg", "dense", "skip",
+            "post1", "post2", "cond_fg", "cond_post", "out", "spans")
+"""The device pointers of a launch, in the order of ``ResPtr`` in
+``csrc/decode_resident.cuh``."""
+SPAN_PHASES = ("embedding and first stage", "layer wait and barrier", "layer copies issued",
+               "fg and gate", "dense and residual", "skip", "post", "sampling", "total")
+"""What each cycle count of a phase-timed launch sums (``kSpans`` in
+``csrc/decode_resident.cuh``); the layer phases are the chain warp's."""
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("wavenet_decode")
-    lib.wavenet_decode.argtypes = _ARGTYPES
+    lib.wavenet_decode.argtypes = ARGTYPES
     lib.wavenet_decode.restype = ctypes.c_int
     lib.wavenet_decode_error.argtypes = [ctypes.c_int]
     lib.wavenet_decode_error.restype = ctypes.c_char_p
     return lib
 
 
+def launch_args(dims: list[int], offsets: list[int], ptrs: dict):
+    """The host arrays of one launch: ``dims`` and the carve ``offsets`` as
+    int32, and the device pointers named in :data:`POINTERS` (absent ones
+    null).  The caller keeps them alive across the call."""
+    dims_a = (ctypes.c_int * len(dims))(*dims)
+    offs_a = (ctypes.c_int * len(offsets))(*offsets)
+    ptrs_a = (ctypes.c_void_p * len(POINTERS))(
+        *[ptrs[k].data_ptr() if k in ptrs else None for k in POINTERS])
+    return dims_a, offs_a, ptrs_a
+
+
+def check_aligned(tensors: dict) -> None:
+    """The kernel copies and loads 16 bytes at a time: every base address
+    must be 16-byte aligned."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
 def decode_cuda(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, n_streams: int,
     dtype: torch.dtype = torch.float32, sample_mode: str = "argmax",
-    temperature: float = 1.0, seed: int = 0,
+    temperature: float = 1.0, seed: int = 0, spans: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (same arguments and
     result as :func:`decode_reference`).  Raises on anything it does not
-    take, and when the launch is refused."""
+    take, a tile larger than :func:`max_streams` included, and when the
+    launch is refused.  ``spans``, an int64 CUDA tensor with one entry per
+    :data:`SPAN_PHASES`, runs the
+    phase-timed build instead (float32, one stream a block), which writes
+    block 0's cycle counts per phase (:data:`SPAN_PHASES`) into it."""
     global LAUNCHES
     _check_supported(cfg)
     L, Cr, Cd, Cs, Q = (
@@ -260,6 +372,7 @@ def decode_cuda(
                          f"(supported: {SUPPORTED_STREAMS})")
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype}")
+    offsets, nbytes = check_tile((L, Cr, Cd, Cs, Q), n_streams, dtype)
     if sample_mode not in _SAMPLE_MODES:
         raise ValueError(f"unknown sample_mode {sample_mode!r}")
     if n_steps < 1:
@@ -281,26 +394,32 @@ def decode_cuda(
     for name, t in (("s0", s0), ("prev0", prev0)):
         if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != (B,):
             raise ValueError(f"{name}: need int32 [{B}] on {device}")
+    if spans is not None and (spans.device != device or spans.dtype != torch.int64
+                              or tuple(spans.shape) != (len(SPAN_PHASES),)
+                              or dtype != torch.float32 or n_streams != 1):
+        raise ValueError(f"spans: need int64 [{len(SPAN_PHASES)}] on the decode's device, "
+                         "float32, n_streams=1")
     ring = ring.to(dtype=dtype, copy=True).contiguous()  # the kernel updates it in place
-    s0, prev0 = s0.contiguous(), prev0.contiguous()
-    dil = torch.tensor(cfg.dilations, dtype=torch.int32, device=device)
-    out = torch.empty((B, n_steps), dtype=torch.int32, device=device)
+    ptrs = {k: w[k] for k in shapes}
+    ptrs["fg"], ptrs["dense"] = chain_packs(w["fg"], w["dense"])
+    check_aligned({**ptrs, "ring": ring})
+    ptrs.update(ring=ring, s0=s0.contiguous(), prev0=prev0.contiguous(),
+                dil=torch.tensor(cfg.dilations, dtype=torch.int32, device=device),
+                out=torch.empty((B, n_steps), dtype=torch.int32, device=device))
+    if spans is not None:
+        ptrs["spans"] = spans
+    dims_a, offs_a, ptrs_a = launch_args([L, Cr, Cd, Cs, Q, ring_len, 1, 1], offsets, ptrs)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wavenet_decode(
-            _DTYPES[dtype], n_streams, B // n_streams, L, Cr, Cd, Cs, Q, ring_len,
-            dil.data_ptr(), ring.data_ptr(), s0.data_ptr(), prev0.data_ptr(),
-            w["ecur"].data_ptr(), w["eprev"].data_ptr(), w["fg"].data_ptr(),
-            w["dense"].data_ptr(), w["skip"].data_ptr(), w["post1"].data_ptr(),
-            w["post2"].data_ptr(),
-            n_steps, _SAMPLE_MODES[sample_mode], float(temperature), seed & 0xFFFFFFFF,
-            out.data_ptr(), stream,
+            _DTYPES[dtype], n_streams, B // n_streams, dims_a, offs_a, nbytes, ptrs_a,
+            n_steps, _SAMPLE_MODES[sample_mode], float(temperature), seed & 0xFFFFFFFF, stream,
         )
     if rc != 0:
         raise RuntimeError(f"wavenet_decode launch failed: {lib.wavenet_decode_error(rc).decode()}")
     LAUNCHES += 1
-    return out
+    return ptrs["out"]
 
 
 def generate_tokens_fused(

@@ -47,7 +47,7 @@ import torch
 
 from music_tpu_torch.kernels import _build, wavenet_decode
 from music_tpu_torch.kernels.wavenet_decode import (
-    SUPPORTED_STREAMS, _check_supported, _sample_scores, ring_offsets,
+    SMEM_LIMIT, SUPPORTED_STREAMS, _check_supported, _pad4, _sample_scores, ring_offsets,
 )
 from music_tpu_torch.models.wavenet import WaveNetConfig, _gate
 from music_tpu_torch.ops.conv import conv1x1, dilated_causal_conv, full_fp32, token_causal_conv
@@ -58,17 +58,11 @@ launch; the CPU path never does)."""
 
 THREADS = 512
 """Threads per block (``kThreads`` in ``csrc/decode_common.cuh``)."""
-SMEM_LIMIT = 232_448
-"""Shared memory one block can have on an H100 (227 KB)."""
 WEIGHT_KEYS = ("fg", "dense", "skip", "post1", "post2")
 """The packs that int8 mode quantizes (embeddings stay in the working dtype)."""
 
 _INV127 = float(np.float32(1.0 / 127.0))  # the f32 of 1/127, as the TPU kernel's 1.0 / 127.0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _pad4(n: int) -> int:
-    return (n + 3) & ~3
 
 
 def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int,

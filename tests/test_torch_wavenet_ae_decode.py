@@ -5,7 +5,9 @@ in interpret mode on the CPU.  On the CPU the wrapper runs the kernel's
 plain version, decode_reference; the CUDA kernel itself is checked against
 it on the card by chip_smoke.py."""
 
+import dataclasses
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -259,3 +261,68 @@ def test_unsupported_inputs_raise():
                                   "filter_width": 3})
     with pytest.raises(NotImplementedError, match="filter_width"):
         tk.generate_tokens_fused(tp, enc, prime, cfg=wide, n_steps=5, n_streams=4)
+
+
+def _ae_cfg(**widths):
+    from music_tpu_torch.core.config import load_params_dir
+
+    params_dir = Path(tk.__file__).parents[1] / "params" / "wavenet_autoencoder"
+    shipped = tae.WaveNetAEConfig.from_json(load_params_dir(params_dir)["model_params"])
+    return dataclasses.replace(shipped, **widths)
+
+
+@pytest.mark.parametrize("widths,dtype,want", [
+    ({}, torch.float32, 16), ({}, torch.bfloat16, 16),
+    (None, torch.float32, 16), (None, torch.bfloat16, 16),
+    ({"de_residual_channel": 64, "de_dilation_channel": 64, "de_skip_channel": 1024},
+     torch.float32, 2),
+    ({"de_residual_channel": 64, "de_dilation_channel": 64, "de_skip_channel": 1024},
+     torch.bfloat16, 4),
+    ({"de_skip_channel": 1024}, torch.float32, 8),
+], ids=["shipped-f32", "shipped-bf16", "tiny-f32", "tiny-bf16", "scaled-f32", "scaled-bf16",
+        "skip1024-f32"])
+def test_max_streams(widths, dtype, want):
+    """The most streams a block whose carve (conditioning rows in the
+    stages) fits, and that the next tile up does not."""
+    from music_tpu_torch.kernels import wavenet_decode as tdec
+
+    cfg = TTINY if widths is None else _ae_cfg(**widths)
+    dims = (cfg.n_blocks, cfg.de_residual_channel, cfg.de_dilation_channel,
+            cfg.de_skip_channel, cfg.quantization_channel)
+    assert tk.max_streams(cfg, dtype) == want
+    assert tdec.smem_layout(*dims, want, dtype, ae=True)[1] <= tk.SMEM_LIMIT
+    if want < tk.SUPPORTED_STREAMS[-1]:
+        assert tdec.smem_layout(*dims, 2 * want, dtype, ae=True)[1] > tk.SMEM_LIMIT
+    # the conditioning rows make the AE's stages larger than WaveNet's
+    assert (tdec.smem_layout(*dims, want, dtype, ae=True)[0][5]
+            > tdec.smem_layout(*dims, want, dtype)[0][5])
+
+
+def test_generate_tiles_by_max_streams_and_oversized_tile_raises(monkeypatch):
+    """The reconstruct path hands stream_tiling B3's max_streams for its
+    config and dtype; decode_cuda refuses a tile the carve does not fit
+    before it looks for a card."""
+    from music_tpu_torch.generate import wavenet_ae_generate as ag
+
+    big = _ae_cfg(de_skip_channel=1024)
+    seen = {}
+
+    def tiling(n, device, max_streams=16):
+        seen["max_streams"] = max_streams
+        return 1, n
+
+    monkeypatch.setattr(ag, "stream_tiling", tiling)
+    monkeypatch.setattr(tk, "generate_tokens_fused", lambda *a, **k: None)
+    prime_len = big.receptive_field + max(big.dilations)
+    codes = torch.zeros((3, prime_len), dtype=torch.int32)
+    from music_tpu_torch.kernels.wavenet_ae_decode_hbm import DECODER_KEYS
+
+    ag._decode({k: torch.zeros(1) for k in DECODER_KEYS}, None, codes, big, 4, backend="fused",
+               sample_mode="argmax", seed=0, dtype=torch.bfloat16)
+    assert seen["max_streams"] == tk.max_streams(big, torch.bfloat16) == 8
+    before = tk.LAUNCHES
+    ring = torch.empty((16, 1, 1))
+    with pytest.raises(ValueError, match="max_streams"):
+        tk.decode_cuda({}, ring, None, None, torch.empty((16, 1, 1)), None, None, cfg=big,
+                       n_steps=3, n_streams=16)
+    assert tk.LAUNCHES == before

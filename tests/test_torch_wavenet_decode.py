@@ -223,3 +223,80 @@ def test_prime_too_short_raises():
     prime = torch.full((1, PRIME_LEN - 1), 16, dtype=torch.int32)
     with pytest.raises(ValueError, match="prime length"):
         tdec.generate_tokens_fused(tp, prime, cfg=TTINY, n_steps=5, n_streams=1)
+
+
+# the scaled model (bench.py's 4.4x widths) and ROADMAP C1's model: the
+# shipped widths with Cs = 1024, 11.4 MB of f32 weights, so on B1's route
+SCALED = twn.WaveNetConfig(dilation_channels=64, residual_channels=64, skip_channels=1024)
+C1_MODEL = twn.WaveNetConfig(skip_channels=1024)
+
+
+@pytest.mark.parametrize("cfg,dtype,want", [
+    (twn.WaveNetConfig(), torch.float32, 16), (twn.WaveNetConfig(), torch.bfloat16, 16),
+    (TTINY, torch.float32, 16), (TTINY, torch.bfloat16, 16),
+    (SCALED, torch.float32, 2), (SCALED, torch.bfloat16, 4),
+    (C1_MODEL, torch.float32, 8), (C1_MODEL, torch.bfloat16, 8),
+], ids=["shipped-f32", "shipped-bf16", "tiny-f32", "tiny-bf16", "scaled-f32", "scaled-bf16",
+        "c1-f32", "c1-bf16"])
+def test_max_streams(cfg, dtype, want):
+    """The most streams a block whose carve fits, and that the carve of the
+    next tile up does not; every fitting carve has 2 to MAX_STAGES stages."""
+    dims = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
+            cfg.quantization_channels)
+    assert tdec.max_streams(cfg, dtype) == want
+    offsets, nbytes = tdec.smem_layout(*dims, want, dtype)
+    assert nbytes <= tdec.SMEM_LIMIT and 2 <= offsets[6] <= tdec.MAX_STAGES
+    if want < tdec.SUPPORTED_STREAMS[-1]:
+        assert tdec.smem_layout(*dims, 2 * want, dtype)[1] > tdec.SMEM_LIMIT
+
+
+def test_c1_model_tiles_by_its_carve(monkeypatch):
+    """ROADMAP C1: 1100 streams of the Cs = 1024 model on a 132-SM card.
+    Capped by the default 16 the tiling asks for a tile whose carve does not
+    fit; capped by max_streams it takes 8 a block, in a second wave."""
+    from types import SimpleNamespace
+
+    from music_tpu_torch.generate import wavenet_generate as wg
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    cuda = torch.device("cuda")
+    dims = (40, 32, 32, 1024, 256)
+    assert not wg.streams_weights(11_370_496)  # the model's f32 bytes: B1's route
+    S, G = wg.stream_tiling(1100, cuda)
+    assert tdec.smem_layout(*dims, S, torch.float32)[1] > tdec.SMEM_LIMIT
+    S, G = wg.stream_tiling(1100, cuda, tdec.max_streams(C1_MODEL, torch.float32))
+    assert (S, G) == (8, 138)
+    assert tdec.smem_layout(*dims, S, torch.float32)[1] <= tdec.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generate_tiles_by_max_streams(monkeypatch, dtype):
+    """The generate path hands stream_tiling the kernel's max_streams for its
+    config and dtype."""
+    from music_tpu_torch.generate import wavenet_generate as wg
+
+    seen = {}
+
+    def tiling(n, device, max_streams=16):
+        seen["max_streams"] = max_streams
+        return 1, n
+
+    monkeypatch.setattr(wg, "stream_tiling", tiling)
+    monkeypatch.setattr(tdec, "generate_tokens_fused", lambda *a, **k: None)
+    prime = torch.zeros((3, 5), dtype=torch.int32)
+    wg._fused_decode({"w": torch.zeros(1)}, prime, C1_MODEL, 4, dtype, "argmax", 1.0, 0)
+    assert seen["max_streams"] == tdec.max_streams(C1_MODEL, dtype) == 8
+
+
+def test_oversized_tile_raises_before_any_launch():
+    """decode_cuda refuses a tile its carve does not fit, or widths its
+    16-byte copies cannot take, before it looks for a card or a library."""
+    before = tdec.LAUNCHES
+    ring = torch.empty((16, 1, 1))
+    with pytest.raises(ValueError, match="max_streams"):
+        tdec.decode_cuda({}, ring, None, None, cfg=C1_MODEL, n_steps=3, n_streams=16)
+    narrow = twn.WaveNetConfig.from_json({**TINY_JSON, "residual_channels": 4})
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tdec.decode_cuda({}, ring, None, None, cfg=narrow, n_steps=3, n_streams=16)
+    assert tdec.LAUNCHES == before
