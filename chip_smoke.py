@@ -41,19 +41,27 @@ WaveNet autoencoder (kernel ``wavenet_ae_decode``):
 8. samples/s of the kernel and its plain version for 1 and 32 streams;
 
 Weight-streaming kernels (``wavenet_decode_hbm``, ``wavenet_ae_decode_hbm``)
-at the 4.4x-scaled width (Cr = Cd = 64, Cs = 1024: 19.1 MB of f32 weights):
+at the 4.4x-scaled width (Cr = Cd = 64, Cs = 1024: 19.1 MB of f32 weights);
+their working-dtype mode runs the resident body with per-layer skip, their
+int8 modes the weight-streaming body:
 
 9. the WaveNet kernel against its plain version at the tiny config in
-   every mode (f32 argmax 1 and 11 streams, bf16 16, categorical, int8
-   weights in f32 and bf16, int8 products with dynamic and static
-   activation scales): exact token matches, a tie-aware check against the
-   f32 model (on ``dequantized_params`` for int8 weights); then the tiny
-   model trained on the card, where int8 products must agree with the f32
-   model on >= 99% of the tokens;
-10. the WaveNet CLI with ``--params-dir`` at the scaled width: one f32
-    stream and 32 bf16 categorical streams, 0.25 s each; launches of the
-    weight-streaming kernel and none of the resident one, wavs, tie-aware
-    checks of 512 steps (f32 against the f32 model; bf16 against its plain
+   every mode (f32 argmax 1 and 11 streams, bf16 16 at the largest tile
+   the working-dtype carve allows, categorical, int8 weights in f32 and
+   bf16, int8 products with dynamic and static activation scales): exact
+   token matches, a tie-aware check against the f32 model (on
+   ``dequantized_params`` for int8 weights); then the tiny model trained
+   on the card, where int8 products must agree with the f32 model on >=
+   99% of the tokens;
+10. WaveNet at the scaled width, 0.25 s each: through the CLI with
+    ``--params-dir`` one f32 stream, which the routing rule gives the
+    weight-streaming kernel (the resident carve has no room for its helper
+    warp in f32), and 32 bf16 categorical streams, which it gives the
+    resident kernel; then through ``generate_batch`` 272 f32 categorical
+    streams (on 132 SMs: past what the resident carve holds in one wave),
+    4 a block on the weight-streaming kernel; one launch of the chosen
+    kernel and none of the other, wavs, tie-aware checks of 512 steps (f32
+    against the f32 model, the first 4 of the 272; bf16 against its plain
     version and against the f32 model);
 11. the int8 modes at the scaled width (int8 weights with 1 f32 and 32
     bf16 streams, int8 products with 32 bf16 streams): 512 steps tie-aware
@@ -61,17 +69,25 @@ at the 4.4x-scaled width (Cr = Cd = 64, Cs = 1024: 19.1 MB of f32 weights):
     with the f32 model printed;
 12. the autoencoder kernel against its plain version at the tiny config
     with per-stream clocks and clamped frames (f32 1 and 11 streams, bf16
-    16, int8 weights): exact token matches, tie-aware against the f32 model;
-13. ``wavenet-ae generate`` at the scaled decoder width on one clip and on
-    32 (0.25 s, f32): launches, wavs, tie-aware 512 steps against the f32
-    model; int8 weights on the 32 clips against their plain version;
-14. samples/s of both kernels (2048 steps) and their plain versions (128
-    steps) in each mode; then both sides of the routing rule, kernels only:
-    each resident kernel at the scaled width (tiled by its ``max_streams``)
-    and each weight-streaming one at the shipped width (WaveNet: 1 f32
-    stream and 32 bf16 categorical; AE: 1 and 32 f32 streams; every f32
-    case first checked tie-aware against the f32 model over 512 steps),
-    each timed against the kernel the rule picks on the same inputs;
+    16 at the largest working-dtype tile, int8 weights): exact token
+    matches, tie-aware against the f32 model;
+13. ``wavenet-ae generate`` at the scaled decoder width (0.25 s, f32) on
+    one clip, on 32 and on 272 clips of 0.3 s (4 a block), all on the
+    weight-streaming kernel: launches (none of the resident one), wavs,
+    tie-aware 512 steps against the f32 model (the first 4 of the 272);
+    int8 weights on the 32 clips against their plain version;
+14. samples/s of both weight-streaming kernels (2048 steps) in each mode
+    and at the tiles past the resident carve, their plain versions (128
+    steps) at one stream a block, and the phase-timed build of the WaveNet
+    kernel (one f32 stream, clock64 spans per phase); then both sides of
+    the routing rule, kernels only: each resident kernel at the scaled
+    width (WaveNet: 1 f32, 32 bf16, 272 f32 and 544 bf16 streams; AE: 1, 32
+    and 272 clips) and each weight-streaming one at the shipped width
+    (WaveNet: 1 f32 stream and 32 bf16 categorical; AE: 1 and 32 f32
+    streams), each tiled by its own ``max_streams`` and timed against the
+    other kernel on the same rows, with the rule's pick (every f32 case of
+    up to 32 rows first checked tie-aware against the f32 model over 512
+    steps);
 
 15. one thread block's L2 read rate (``csrc/l2_probe.cu``) at the bytes a
     block of each timed case moves a step, and each case's one-SM floor;
@@ -179,8 +195,26 @@ def bound(step_bytes: float, step_flops: float, dtype_name: str) -> tuple[float,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
+def rate_line(rows: int, ker: float, plain: float | None, bnd: tuple) -> str:
+    """One timed case: the kernel's and the plain version's ms a step as
+    µs and samples/s, and the bound's share."""
+    text = f"kernel {ker * 1e3:.1f} us/step = {rows / ker * 1e3:.0f} samples/s; "
+    if plain is not None:
+        text += f"plain {plain * 1e3:.1f} us/step = {rows / plain * 1e3:.0f} samples/s; "
+    return text + (f"bound {bnd[0] * 1e3:.3f} us/step ({bnd[1]}, {100 * bnd[0] / ker:.3f}% of "
+                   "the kernel's)")
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def model_packs(w: dict) -> dict:
+    """The weight packs of a decode's inputs without the weight-streaming
+    kernels' chain packs (``fg_t``, ``dense_t``: ``fg`` and ``dense``
+    transposed and padded for the kernel to stage), so that every weight
+    counts once."""
+    return {k: v for k, v in w.items() if k not in ("fg_t", "dense_t")}
 
 
 def block_step_bytes(w: dict, S: int, L: int, Cr: int, cond_elems: int = 0) -> int:
@@ -188,7 +222,7 @@ def block_step_bytes(w: dict, S: int, L: int, Cr: int, cond_elems: int = 0) -> i
     embeddings (of which it reads two rows), int8 scale rows included, read
     once; and per stream its L ring taps read and written and, for the
     autoencoder, its ``cond_elems`` conditioning values read."""
-    weights = nbytes(*(v for k, v in w.items() if k not in ("ecur", "eprev")))
+    weights = nbytes(*(v for k, v in model_packs(w).items() if k not in ("ecur", "eprev")))
     return weights + S * (2 * L * Cr + cond_elems) * w["ecur"].element_size()
 
 
@@ -207,7 +241,7 @@ def main() -> None:
     from music_tpu_torch.core.config import load_params_dir
     from music_tpu_torch.data import wavio
     from music_tpu_torch.generate import wavenet_generate
-    from music_tpu_torch.generate.wavenet_generate import stream_tiling
+    from music_tpu_torch.generate.wavenet_generate import stream_tiling, streams_weights
     from music_tpu_torch.kernels import _build
     from music_tpu_torch.kernels import wavenet_ae_decode as aedec
     from music_tpu_torch.kernels import wavenet_ae_decode_hbm as aehbm
@@ -626,11 +660,16 @@ def main() -> None:
     calib = torch.randint(0, 32, (2, 600), generator=g).to(dev)
     tiny_act = hbm.calibrate_act_scales(b2_params, tiny, calib)
     P = tiny.receptive_field + max(tiny.dilations)
+    b2_tile = hbm.max_streams(tiny)  # the largest working-dtype tile, f32 or bf16: 4
+    assert b2_tile == hbm.max_streams(tiny, bf16)
     b2_cases = [  # (label, rows, streams per block, dtype, mode, weight dtype, int8 products, act)
         ("f32 argmax 1 stream", 1, 1, f32, "argmax", None, False, None),
-        ("f32 argmax 11 streams (2 x 8)", 11, 8, f32, "argmax", None, False, None),
-        ("bf16 argmax 16 streams", 16, 16, bf16, "argmax", None, False, None),
-        ("f32 categorical 11 streams (2 x 8)", 11, 8, f32, "categorical", None, False, None),
+        (f"f32 argmax 11 streams (3 x {b2_tile})", 11, b2_tile, f32, "argmax", None, False,
+         None),
+        (f"bf16 argmax 16 streams (4 x {b2_tile})", 16, b2_tile, bf16, "argmax", None, False,
+         None),
+        (f"f32 categorical 11 streams (3 x {b2_tile})", 11, b2_tile, f32, "categorical", None,
+         False, None),
         ("int8 weights f32 11 streams", 11, 8, f32, "argmax", int8, False, None),
         ("int8 weights bf16 16 streams", 16, 16, bf16, "argmax", int8, False, None),
         ("int8 products, dynamic scales, 11 streams", 11, 8, f32, "argmax", int8, True, None),
@@ -698,15 +737,27 @@ def main() -> None:
         if agreement < 0.99:
             fail(f"int8 products ({label}) agree with the f32 model on {agreement:.4f} < 0.99")
 
-    # -- 10. the weight-streaming path at the scaled width, through the CLI
+    # -- 10. the scaled width: through the CLI one f32 stream (the
+    # weight-streaming kernel) and 32 bf16 streams (the resident kernel), and
+    # through generate_batch f32 streams past what the resident carve holds
+    # in one wave (the weight-streaming kernel, 4 a block)
     scaled_json = {**cfg_json, "residual_channels": 64, "dilation_channels": 64,
                    "skip_channels": 1024}
     scaled = wn.WaveNetConfig.from_json(scaled_json)
     scaled_params = wn.init_params(scaled, torch.Generator().manual_seed(0))
     n_params = sum(v.numel() for v in scaled_params.values())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_past = sms * dec.max_streams(scaled) + 8  # 272 f32 streams on 132 SMs
     print(f"[10] scaled config: {scaled.n_blocks} blocks, Cr=Cd={scaled.residual_channels}, "
-          f"Cs={scaled.skip_channels}, {n_params} params, {4 * n_params / 1e6:.2f} MB f32, "
-          f"{hbm.max_streams(scaled)} streams a block at most")
+          f"Cs={scaled.skip_channels}, {n_params} params, {4 * n_params / 1e6:.2f} MB f32; "
+          f"streams a block: resident {dec.max_streams(scaled)} f32 or "
+          f"{dec.max_streams(scaled, bf16)} bf16, weight-streaming {hbm.max_streams(scaled)} f32 "
+          f"or {hbm.max_streams(scaled, bf16)} bf16 ({hbm.max_streams(scaled, mode=1)} with int8 "
+          "weights)")
+
+    def cli_run(*extra):
+        return lambda: cli.main(common + list(extra))
+
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         (tmp / "params").mkdir()
@@ -716,49 +767,57 @@ def main() -> None:
                   str(tmp / "params"), "--duration", "0.25"]
         scaled_codes = {}
         reset_counts()
-        for label, extra, wavs in [
-            ("one stream", ["--out", str(tmp / "one.wav")], [tmp / "one.wav"]),
-            ("32 streams", ["--out", str(tmp / "many.wav"), "--num", "32",
-                            "--sample-mode", "categorical"],
-             [tmp / "many" / f"gen_{i:03d}.wav" for i in range(32)]),
+        for label, run, wavs, kernel in [
+            ("CLI one stream", cli_run("--out", str(tmp / "one.wav")), [tmp / "one.wav"], hbm),
+            ("CLI 32 streams", cli_run("--out", str(tmp / "many.wav"), "--num", "32",
+                                       "--sample-mode", "categorical"),
+             [tmp / "many" / f"gen_{i:03d}.wav" for i in range(32)], dec),
+            (f"generate_batch {n_past} f32 streams", lambda: wavenet_generate.generate_batch(
+                cfg=scaled, checkpoint_dir=tmp / "ckpt", n=n_past, out_dir=tmp / "past",
+                duration=0.25, sample_mode="categorical", dtype=f32, device="cuda"),
+             [tmp / "past" / f"gen_{i:03d}.wav" for i in range(n_past)], hbm),
         ]:
-            before = hbm.LAUNCHES
+            before = {m: m.LAUNCHES for m in (dec, hbm)}
             t0 = time.perf_counter()
-            cli.main(common + extra)
+            run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if hbm.LAUNCHES <= before:
-                fail(f"scaled CLI {label}: the weight-streaming kernel was not launched")
+            other = hbm if kernel is dec else dec
+            if kernel.LAUNCHES != before[kernel] + 1 or other.LAUNCHES != before[other]:
+                fail(f"scaled {label}: {kernel.__name__} was not the one kernel launched")
             scaled_codes[label] = np.stack([pcm_codes(w, 256) for w in wavs])
             if scaled_codes[label].shape != (len(wavs), n_samples):
-                fail(f"scaled CLI {label}: wavs of shape {scaled_codes[label].shape}")
-            print(f"[10] scaled CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
-                  f"{hbm.LAUNCHES - before} weight-streaming launch(es), {wall:.2f} s wall",
-                  flush=True)
-        if dec.LAUNCHES:
-            fail("the resident WaveNet kernel was launched on the scaled path")
+                fail(f"scaled {label}: wavs of shape {scaled_codes[label].shape}")
+            print(f"[10] scaled {label}: {len(wavs)} wav(s) of {n_samples} samples, one "
+                  f"launch of {kernel.__name__.rsplit('.', 1)[1]}, {wall:.2f} s wall", flush=True)
+        main_path_launches["wavenet_decode"] += dec.LAUNCHES
         main_path_launches["wavenet_decode_hbm"] = hbm.LAUNCHES
     sfp = {k: v.to(dev) for k, v in scaled_params.items()}
-    s_sil = torch.full((32, scaled.receptive_field + max(scaled.dilations)), 128,
+    s_sil = torch.full((2 * n_past, scaled.receptive_field + max(scaled.dilations)), 128,
                        dtype=torch.int32, device=dev)
-    one = torch.from_numpy(scaled_codes["one stream"][:, :512]).to(dev)
+    one = torch.from_numpy(scaled_codes["CLI one stream"][:, :512]).to(dev)
     check("[10] scaled CLI one stream f32, first 512 steps", one,
           model_scores(sfp, s_sil[:1], scaled), TOL_F32, kernel="wavenet_decode_hbm")
-    many = torch.from_numpy(scaled_codes["32 streams"][:, :512]).to(dev)
-    if len({tuple(r) for r in scaled_codes["32 streams"].tolist()}) != 32:
-        fail("the 32 scaled categorical streams are not distinct")
-    S, G = stream_tiling(32, dev, hbm.max_streams(scaled))
-    inputs = hbm.prepare(sfp, s_sil, cfg=scaled, n_streams=S, n_stream_groups=G, dtype=bf16,
+    for label in ("CLI 32 streams", f"generate_batch {n_past} f32 streams"):
+        if len({tuple(r) for r in scaled_codes[label].tolist()}) != len(scaled_codes[label]):
+            fail(f"the scaled {label} (categorical) are not distinct")
+    many = torch.from_numpy(scaled_codes["CLI 32 streams"][:, :512]).to(dev)
+    inputs = dec.prepare(sfp, s_sil[:32], cfg=scaled, n_streams=32, dtype=bf16,
                          sample_mode="categorical")
     check("[10] scaled CLI 32 streams bf16 categorical vs its plain version, first 512 steps",
-          many[:, 1:], lambda t: reference_scores(inputs, many, scaled, dtype=bf16, kernel=hbm,
+          many[:, 1:], lambda t: reference_scores(inputs, many, scaled, dtype=bf16,
                                                   sample_mode="categorical"),
-          TOL_F32, kernel="wavenet_decode_hbm")
+          TOL_F32, kernel="wavenet_decode")
     check("[10] scaled CLI 32 streams bf16 categorical vs the f32 model, first 512 steps", many,
-          model_scores(sfp, s_sil, scaled, sample_mode="categorical"), TOL_BF16)
+          model_scores(sfp, s_sil[:32], scaled, sample_mode="categorical"), TOL_BF16)
     logit_error_check("[10] scaled CLI 32 streams",
-                      reference_scores(inputs, many, scaled, dtype=bf16, kernel=hbm),
-                      teacher_forced_scores(sfp, s_sil, many, scaled)[:, 1:], TOL_BF16)
+                      reference_scores(inputs, many, scaled, dtype=bf16),
+                      teacher_forced_scores(sfp, s_sil[:32], many, scaled)[:, 1:], TOL_BF16)
+    past = torch.from_numpy(scaled_codes[f"generate_batch {n_past} f32 streams"][:4, :512])
+    check(f"[10] scaled generate_batch {n_past} f32 categorical streams (the first 4) vs the f32 "
+          "model, first 512 steps", past.to(dev),
+          model_scores(sfp, s_sil[:4], scaled, sample_mode="categorical"), TOL_F32,
+          kernel="wavenet_decode_hbm")
 
     # -- 11. the int8 modes at the scaled width
     rprime = torch.randint(0, 256, s_sil.shape, generator=torch.Generator().manual_seed(11))
@@ -766,7 +825,7 @@ def main() -> None:
     for label, rows, dtype, q8 in [("int8 weights, 1 f32 stream", 1, f32, False),
                                    ("int8 weights, 32 bf16 streams", 32, bf16, False),
                                    ("int8 products, 32 bf16 streams", 32, bf16, True)]:
-        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, q8))
+        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, dtype, hbm.mode_of(int8, q8)))
         opts = dict(cfg=scaled, n_streams=S, n_stream_groups=G, dtype=dtype, weight_dtype=int8,
                     int8_matmul=q8)
         before = hbm.LAUNCHES
@@ -788,9 +847,11 @@ def main() -> None:
     b4_params = ae.init_params(ae_tiny, g, device=dev)
     b4_dq = aehbm.dequantized_params(b4_params, ae_tiny)
     P = ae_tiny.receptive_field + max(ae_tiny.dilations)
+    b4_tile = aehbm.max_streams(ae_tiny, bf16)  # the largest working-dtype tile: 4
     for label, rows, S, dtype, wd in [("f32 1 stream", 1, 1, f32, None),
-                                      ("f32 11 streams (2 x 8)", 11, 8, f32, None),
-                                      ("bf16 16 streams", 16, 16, bf16, None),
+                                      (f"f32 11 streams (3 x {b4_tile})", 11, b4_tile, f32, None),
+                                      (f"bf16 16 streams (4 x {b4_tile})", 16, b4_tile, bf16,
+                                       None),
                                       ("int8 weights f32 11 streams", 11, 8, f32, int8)]:
         prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
         enc = (0.3 * torch.randn((rows, F_TINY, ae_tiny.en_bottleneck_width),
@@ -821,16 +882,21 @@ def main() -> None:
         else:
             check(f"[12] B4 {label} vs the f32 model", ker[:rows], b4_model, TOL_AE_BF16)
 
-    # -- 13. the weight-streaming AE path at the scaled decoder width, CLI
+    # -- 13. the AE at the scaled decoder width through the CLI: 1 and 32
+    # clips and a count past what the resident carve holds in one wave (0.3 s
+    # clips), all on the weight-streaming kernel
     ae_scaled_json = {**load_params_dir(params_root / "wavenet_autoencoder")["model_params"],
                       "de_residual_channel": 64, "de_dilation_channel": 64,
                       "de_skip_channel": 1024}
     ae_scaled = ae.WaveNetAEConfig.from_json(ae_scaled_json)
     ae_scaled_params = ae.init_params(ae_scaled, torch.Generator().manual_seed(0))
     dec_params = sum(ae_scaled_params[k].numel() for k in aehbm.DECODER_KEYS)
+    n_past_ae = sms * aedec.max_streams(ae_scaled) + 8  # 272 on 132 SMs
     print(f"[13] scaled AE decoder: Cr=Cd={ae_scaled.de_residual_channel}, "
           f"Cs={ae_scaled.de_skip_channel}, {dec_params} decoder params in the kernel "
-          f"({4 * dec_params / 1e6:.2f} MB f32)")
+          f"({4 * dec_params / 1e6:.2f} MB f32); f32 streams a block: resident "
+          f"{aedec.max_streams(ae_scaled)}, weight-streaming {aehbm.max_streams(ae_scaled)}")
+    t_past = np.arange(int(0.3 * sr)) / sr
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         (tmp / "params").mkdir()
@@ -838,43 +904,58 @@ def main() -> None:
         checkpoint.save(tmp / "ckpt", 1, TrainState(params=ae_scaled_params, step=1))
         for i, clip in enumerate(clips):
             wavio.write_wav(tmp / "clips" / f"clip_{i:03d}.wav", clip, sr)
+        for i in range(n_past_ae):  # 0.3 s seeded sine mixtures
+            freqs, amps = rng.uniform(80, 2000, 3), rng.uniform(0.1, 0.3, 3)
+            clip = sum(a * np.sin(2 * np.pi * f * t_past) for f, a in zip(freqs, amps))
+            wavio.write_wav(tmp / "past_clips" / f"clip_{i:03d}.wav", clip.astype(np.float32), sr)
+        past_sources = np.stack([wavio.read_wav(tmp / "past_clips" / f"clip_{i:03d}.wav")[0]
+                                 for i in range(4)])
         ae_scaled_codes = {}
         reset_counts()
-        for label, source, wavs in [
-            ("one clip", tmp / "clips" / "clip_000.wav", [tmp / "one.wav"]),
+        for label, source, wavs, kernel in [
+            ("one clip", tmp / "clips" / "clip_000.wav", [tmp / "one.wav"], aehbm),
             ("32 clips", tmp / "clips",
-             [tmp / "many" / f"recon_{i:03d}.wav" for i in range(n_clips)]),
+             [tmp / "many" / f"recon_{i:03d}.wav" for i in range(n_clips)], aehbm),
+            (f"{n_past_ae} clips", tmp / "past_clips",
+             [tmp / "past" / f"recon_{i:03d}.wav" for i in range(n_past_ae)], aehbm),
         ]:
-            before = aehbm.LAUNCHES
-            out = tmp / "one.wav" if source.is_file() else tmp / "many.wav"
+            before = {m: m.LAUNCHES for m in (aedec, aehbm)}
+            out = tmp / ("one.wav" if source.is_file() else f"{wavs[0].parent.name}.wav")
             t0 = time.perf_counter()
             cli.main(["wavenet-ae", "generate", "--checkpoint", str(tmp / "ckpt"),
                       "--params-dir", str(tmp / "params"), "--source", str(source),
                       "--out", str(out), "--duration", "0.25"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            if aehbm.LAUNCHES <= before:
-                fail(f"scaled AE CLI {label}: the weight-streaming AE kernel was not launched")
+            other = aehbm if kernel is aedec else aedec
+            if kernel.LAUNCHES != before[kernel] + 1 or other.LAUNCHES != before[other]:
+                fail(f"scaled AE CLI {label}: {kernel.__name__} was not the one kernel launched")
             ae_scaled_codes[label] = np.stack([pcm_codes(w, Q) for w in wavs])
             if ae_scaled_codes[label].shape != (len(wavs), n_samples):
                 fail(f"scaled AE CLI {label}: wavs of shape {ae_scaled_codes[label].shape}")
-            print(f"[13] scaled AE CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, "
-                  f"{aehbm.LAUNCHES - before} weight-streaming launch(es), {wall:.2f} s wall",
+            print(f"[13] scaled AE CLI {label}: {len(wavs)} wav(s) of {n_samples} samples, one "
+                  f"launch of {kernel.__name__.rsplit('.', 1)[1]}, {wall:.2f} s wall",
                   flush=True)
-        if aedec.LAUNCHES:
-            fail("the resident AE kernel was launched on the scaled path")
+        main_path_launches["wavenet_ae_decode"] += aedec.LAUNCHES
         main_path_launches["wavenet_ae_decode_hbm"] = aehbm.LAUNCHES
     asp = {k: v.to(dev) for k, v in ae_scaled_params.items()}
+    past_codes = mu_law_encode(torch.from_numpy(past_sources), Q).to(dev)
     with torch.no_grad(), full_fp32():
         as_enc = ae.encode(asp, src_codes, ae_scaled)
-    as_prime = src_codes[:, :ae_scaled.receptive_field + max(ae_scaled.dilations)]
-    for label, rows in (("one clip", 1), ("32 clips", n_clips)):
-        toks = torch.from_numpy(ae_scaled_codes[label][:, :512]).to(dev)
-        check(f"[13] scaled AE CLI {label} f32, first 512 steps", toks,
-              lambda t, rows=rows: ae_teacher_forced_scores(asp, as_enc[:rows], as_prime[:rows],
-                                                            t, ae_scaled),
-              TOL_F32, kernel="wavenet_ae_decode_hbm")
-    S, G = stream_tiling(n_clips, dev, aehbm.max_streams(ae_scaled))
+        past_enc = ae.encode(asp, past_codes, ae_scaled)
+    as_P = ae_scaled.receptive_field + max(ae_scaled.dilations)
+    as_prime = src_codes[:, :as_P]
+    for label, enc_, prime_, rows, name in (
+            ("one clip", as_enc, as_prime, 1, "wavenet_ae_decode_hbm"),
+            ("32 clips", as_enc, as_prime, n_clips, "wavenet_ae_decode_hbm"),
+            (f"{n_past_ae} clips", past_enc, past_codes[:, :as_P], 4, "wavenet_ae_decode_hbm")):
+        toks = torch.from_numpy(ae_scaled_codes[label][:rows, :512]).to(dev)
+        what = "" if rows == len(ae_scaled_codes[label]) else f" (the first {rows})"
+        check(f"[13] scaled AE CLI {label}{what} f32, first 512 steps", toks,
+              lambda t, enc_=enc_, prime_=prime_, rows=rows: ae_teacher_forced_scores(
+                  asp, enc_[:rows], prime_[:rows], t, ae_scaled),
+              TOL_F32, kernel=name)
+    S, G = stream_tiling(n_clips, dev, aehbm.max_streams(ae_scaled, mode=1))
     opts = dict(cfg=ae_scaled, n_streams=S, n_stream_groups=G, weight_dtype=int8)
     toks = aehbm.generate_tokens_fused_hbm(asp, as_enc, as_prime, n_steps=512, **opts)
     inputs = aehbm.prepare(asp, as_enc, as_prime, **opts)
@@ -882,7 +963,8 @@ def main() -> None:
           lambda t: ae_reference_scores(inputs, toks, ae_scaled, dtype=f32, kernel=aehbm),
           TOL_F32, kernel="wavenet_ae_decode_hbm")
 
-    # -- 14. times of the weight-streaming kernels at the scaled width
+    # -- 14. times of the weight-streaming kernels at the scaled width (the
+    # plain versions at the main path's one-a-block tiles only)
     scaled_macs = step_macs(scaled.n_blocks, scaled.residual_channels,
                             scaled.dilation_channels, scaled.skip_channels,
                             scaled.quantization_channels)
@@ -890,40 +972,45 @@ def main() -> None:
     for label, rows, dtype, mode, wd, q8 in [
         ("1 stream f32", 1, f32, "argmax", None, False),
         ("32 streams bf16 categorical", 32, bf16, "categorical", None, False),
+        (f"{n_past} streams f32 categorical", n_past, f32, "categorical", None, False),
+        (f"{2 * n_past} streams bf16 categorical", 2 * n_past, bf16, "categorical", None, False),
         ("32 streams bf16 int8 weights", 32, bf16, "categorical", int8, False),
         ("32 streams bf16 int8 products", 32, bf16, "categorical", int8, True),
     ]:
-        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, q8))
+        S, G = stream_tiling(rows, dev, hbm.max_streams(scaled, dtype, hbm.mode_of(wd, q8)))
         inputs = hbm.prepare(sfp, s_sil[:rows], cfg=scaled, n_streams=S, n_stream_groups=G,
                              dtype=dtype, weight_dtype=wd, int8_matmul=q8, sample_mode=mode)
         kw = dict(cfg=scaled, dtype=dtype, int8_matmul=q8, sample_mode=mode)
         ker = timed(lambda n: hbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
                     TIMED_STEPS, 3)
-        plain = timed(lambda n: hbm.decode_reference(*inputs, n_steps=n, **kw),
-                      PLAIN_STEPS_SCALED, 1)
+        plain = None if rows > 32 else timed(
+            lambda n: hbm.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0 = inputs
         floors.append((f"B2 {label}", ker, block_step_bytes(w, S, scaled.n_blocks,
                                                             scaled.residual_channels)))
-        launch_bytes = (nbytes(*w.values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
+        launch_bytes = (nbytes(*model_packs(w).values(), s0, prev0) + 2 * nbytes(ring.to(dtype))
                         + 4 * rows * TIMED_STEPS)
         peak = "int8" if q8 else str(dtype).removeprefix("torch.")
         hbm_times[label] = (ker, plain, bound(launch_bytes / (TIMED_STEPS - 1),
                                               2 * scaled_macs * rows, peak))
-        b = hbm_times[label][2]
-        print(f"[14] B2 {label} ({S} per block, {G} blocks): kernel {ker * 1e3:.1f} us/step = "
-              f"{rows / ker * 1e3:.0f} samples/s; plain {plain * 1e3:.1f} us/step = "
-              f"{rows / plain * 1e3:.0f} samples/s; bound {b[0] * 1e3:.3f} us/step ({b[1]}, "
-              f"{100 * b[0] / ker:.3f}% of the kernel's)  [{card}]", flush=True)
+        print(f"[14] B2 {label} ({S} per block, {G} blocks): "
+              + rate_line(rows, ker, plain, hbm_times[label][2]) + f"  [{card}]", flush=True)
+    # the AE past the resident carve: the first 4 clips' encodings and primes, repeated
+    past_rep = -(-n_past_ae // 4)
+    past_args = (past_enc.repeat(past_rep, 1, 1)[:n_past_ae],
+                 past_codes[:, :as_P].repeat(past_rep, 1)[:n_past_ae])
     for label, rows, wd in [("1 stream f32", 1, None), ("32 streams f32", n_clips, None),
+                            (f"{n_past_ae} streams f32", n_past_ae, None),
                             ("32 streams f32 int8 weights", n_clips, int8)]:
-        S, G = stream_tiling(rows, dev, aehbm.max_streams(ae_scaled))
-        inputs = aehbm.prepare(asp, as_enc[:rows], as_prime[:rows], cfg=ae_scaled, n_streams=S,
+        S, G = stream_tiling(rows, dev, aehbm.max_streams(ae_scaled, f32, hbm.mode_of(wd)))
+        enc_, prime_ = past_args if rows > n_clips else (as_enc[:rows], as_prime[:rows])
+        inputs = aehbm.prepare(asp, enc_, prime_, cfg=ae_scaled, n_streams=S,
                                n_stream_groups=G, weight_dtype=wd)
         kw = dict(cfg=ae_scaled, dtype=f32)
         ker = timed(lambda n: aehbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
                     TIMED_STEPS, 3)
-        plain = timed(lambda n: aehbm.decode_reference(*inputs, n_steps=n, **kw),
-                      PLAIN_STEPS_SCALED, 1)
+        plain = None if rows > n_clips else timed(
+            lambda n: aehbm.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
         floors.append((f"B4 {label}", ker, block_step_bytes(
             w, S, ae_scaled.n_blocks, ae_scaled.de_residual_channel,
@@ -932,56 +1019,76 @@ def main() -> None:
         rows_read = int((ae.frame_of(pos0.long() + TIMED_STEPS - 2, pool, F)
                          - ae.frame_of(pos0.long(), pool, F) + 1).sum())
         row_bytes = (cond_fg.shape[2] + cond_post.shape[2]) * cond_fg.element_size()
-        launch_bytes = (nbytes(*w.values(), s0, prev0, pos0) + 2 * nbytes(ring)
+        launch_bytes = (nbytes(*model_packs(w).values(), s0, prev0, pos0) + 2 * nbytes(ring)
                         + rows_read * row_bytes + 4 * rows * TIMED_STEPS)
         hbm_times["AE " + label] = (ker, plain, bound(launch_bytes / (TIMED_STEPS - 1),
                                                       2 * scaled_macs * rows, "float32"))
-        b = hbm_times["AE " + label][2]
-        print(f"[14] B4 {label} ({S} per block, {G} blocks): kernel {ker * 1e3:.1f} us/step = "
-              f"{rows / ker * 1e3:.0f} samples/s; plain {plain * 1e3:.1f} us/step = "
-              f"{rows / plain * 1e3:.0f} samples/s; bound {b[0] * 1e3:.3f} us/step ({b[1]}, "
-              f"{100 * b[0] / ker:.3f}% of the kernel's)  [{card}]", flush=True)
+        print(f"[14] B4 {label} ({S} per block, {G} blocks): "
+              + rate_line(rows, ker, plain, hbm_times["AE " + label][2]) + f"  [{card}]", flush=True)
 
-    # the routing rule's two sides, kernels only: each resident kernel at the
-    # scaled width (its carve fits there 2 f32 or 4 bf16 streams a block) and each
-    # weight-streaming one at the shipped width, on the inputs of the kernel
-    # the rule picks, timed against it
-    def off_route(label, name, mod, cfg_, args, dtype, opts, model_fn, routed):
+    # the phase-timed build of the WaveNet kernel's working-dtype mode (f32,
+    # one stream): block 0's clock64 cycles per phase, as shares of the
+    # launch's CUDA-event time
+    inputs = hbm.prepare(sfp, s_sil[:1], cfg=scaled, n_streams=1)
+    spans = torch.zeros(len(hbm.SPAN_PHASES), dtype=torch.int64, device=dev)
+    spanned = timed(lambda n: hbm.decode_cuda(*inputs, cfg=scaled, n_steps=n, n_streams=1,
+                                              spans=spans), TIMED_STEPS, 1)
+    cycles = spans.tolist()
+    print(f"[14] B2 phases of a step, 1 stream f32 (timed build {spanned * 1e3:.1f} us/step, "
+          f"{cycles[-1] / (spanned * 1e-3 * (TIMED_STEPS - 1)) / 1e9:.2f} GHz): "
+          + ", ".join(f"{name} {spanned * 1e3 * c / cycles[-1]:.2f} us"
+                      for name, c in zip(hbm.SPAN_PHASES[:-1], cycles))
+          + f"  [{card}]", flush=True)
+
+    # the routing rule's two sides, kernels only: on the same rows, each
+    # kernel tiled by its own max_streams, the one timed above against the
+    # other; every f32 case of fewer than 33 rows first checked tie-aware
+    # against the f32 model over 512 steps
+    def versus(label, name, mod, cfg_, args, dtype, opts, model_fn, other):
         rows = args[-1].shape[0]
-        cap = mod.max_streams(cfg_, dtype) if mod in (dec, aedec) else mod.max_streams(cfg_)
-        S, G = stream_tiling(rows, dev, cap)
+        S, G = stream_tiling(rows, dev, mod.max_streams(cfg_, dtype))
         inputs = mod.prepare(*args, cfg=cfg_, n_streams=S, n_stream_groups=G, dtype=dtype, **opts)
         kw = dict(cfg=cfg_, dtype=dtype, **opts)
-        if model_fn is not None:  # off its route the kernel still computes the model
+        if model_fn is not None:
             toks = mod.decode_cuda(*inputs, n_steps=512, n_streams=S, **kw)[:rows]
             check(f"[14] {name} at the {label}, 512 steps", toks, model_fn, TOL_F32)
         ker = timed(lambda n: mod.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
                     TIMED_STEPS, 3)
-        print(f"[14] routing, {label} ({S} per block, {G} blocks): {name} {ker * 1e3:.1f} "
-              f"us/step against {routed[0]} {routed[1] * 1e3:.1f} us/step (the rule's pick): "
-              f"{name if ker < routed[1] else routed[0]} is faster  [{card}]", flush=True)
+        resident, streaming = (dec, hbm) if mod in (dec, hbm) else (aedec, aehbm)
+        names = ("B3", "B4") if resident is aedec else ("B1", "B2")
+        pick = names[streams_weights(rows, dev, resident, streaming, cfg_, dtype)]
+        faster = name if ker < other[1] else other[0]
+        print(f"[14] routing, {label}: {name} ({S} per block, {G} blocks) {ker * 1e3:.1f} "
+              f"us/step, {other[0]} {other[1] * 1e3:.1f} us/step; the rule picks {pick}, "
+              f"{faster} is faster  [{card}]", flush=True)
 
     def ae_model_scores(params_, enc, prime_, cfg_):
         return lambda t: ae_teacher_forced_scores(params_, enc, prime_, t.to(dev), cfg_)
 
     cat = {"sample_mode": "categorical"}
-    off_route("scaled width, 1 stream f32", "B1", dec, scaled, (sfp, s_sil[:1]), f32, {},
-              model_scores(sfp, s_sil[:1], scaled), ("B2", hbm_times["1 stream f32"][0]))
-    off_route("scaled width, 32 streams bf16 categorical", "B1", dec, scaled, (sfp, s_sil), bf16,
-              cat, None, ("B2", hbm_times["32 streams bf16 categorical"][0]))
-    off_route("shipped width, 1 stream f32", "B2", hbm, full, (fp, silence[:1]), f32, {},
-              model_scores(fp, silence[:1], full), ("B1", times["1 stream f32 argmax"][0]))
-    off_route("shipped width, 32 streams bf16 categorical", "B2", hbm, full, (fp, silence), bf16,
-              cat, None, ("B1", times["32 streams bf16 categorical"][0]))
+    versus("scaled width, 1 stream f32", "B1", dec, scaled, (sfp, s_sil[:1]), f32, {},
+           model_scores(sfp, s_sil[:1], scaled), ("B2", hbm_times["1 stream f32"][0]))
+    versus("scaled width, 32 streams bf16 categorical", "B1", dec, scaled, (sfp, s_sil[:32]),
+           bf16, cat, None, ("B2", hbm_times["32 streams bf16 categorical"][0]))
+    for rows, dtype, name in ((n_past, f32, "f32"), (2 * n_past, bf16, "bf16")):  # past the carve
+        key = f"{rows} streams {name} categorical"
+        versus(f"scaled width, {key}", "B1", dec, scaled, (sfp, s_sil[:rows]), dtype, cat, None,
+               ("B2", hbm_times[key][0]))
+    versus("shipped width, 1 stream f32", "B2", hbm, full, (fp, silence[:1]), f32, {},
+           model_scores(fp, silence[:1], full), ("B1", times["1 stream f32 argmax"][0]))
+    versus("shipped width, 32 streams bf16 categorical", "B2", hbm, full, (fp, silence), bf16,
+           cat, None, ("B1", times["32 streams bf16 categorical"][0]))
+    for rows, key in ((1, "1 stream f32"), (n_clips, "32 streams f32"),
+                      (n_past_ae, f"{n_past_ae} streams f32")):
+        enc_, prime_ = past_args if rows > n_clips else (as_enc[:rows], as_prime[:rows])
+        versus(f"scaled AE decoder, {key}", "B3", aedec, ae_scaled, (asp, enc_, prime_), f32, {},
+               None if rows > n_clips else ae_model_scores(asp, enc_, prime_, ae_scaled),
+               ("B4", hbm_times["AE " + key][0]))
     for rows, key in ((1, "1 stream f32"), (n_clips, "32 streams f32")):
-        off_route(f"scaled AE decoder, {key}", "B3", aedec, ae_scaled,
-                  (asp, as_enc[:rows], as_prime[:rows]), f32, {},
-                  ae_model_scores(asp, as_enc[:rows], as_prime[:rows], ae_scaled),
-                  ("B4", hbm_times["AE " + key][0]))
-        off_route(f"shipped AE, {key}", "B4", aehbm, ae_full,
-                  (afp, ae_enc[:rows], ae_prime[:rows]), f32, {},
-                  ae_model_scores(afp, ae_enc[:rows], ae_prime[:rows], ae_full),
-                  ("B3", ae_times[key][0]))
+        versus(f"shipped AE, {key}", "B4", aehbm, ae_full,
+               (afp, ae_enc[:rows], ae_prime[:rows]), f32, {},
+               ae_model_scores(afp, ae_enc[:rows], ae_prime[:rows], ae_full),
+               ("B3", ae_times[key][0]))
     b2 = {"times": hbm_times["1 stream f32"], "bound": hbm_times["1 stream f32"][2]}
     b4 = {"times": hbm_times["AE 1 stream f32"], "bound": hbm_times["AE 1 stream f32"][2]}
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")

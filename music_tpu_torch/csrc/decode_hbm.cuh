@@ -1,12 +1,15 @@
-// The weight-streaming fused decode shared by wavenet_decode_hbm.cu (the
-// WaveNet decode, AE = false) and wavenet_ae_decode_hbm.cu (the
-// autoencoder's conditioned decode, AE = true).  Each source's note says
-// which TPU kernel it replaces and what bounds it.
+// The int8 modes of the weight-streaming fused decode shared by
+// wavenet_decode_hbm.cu (the WaveNet decode, AE = false) and
+// wavenet_ae_decode_hbm.cu (the autoencoder's conditioned decode, AE =
+// true).  Each source's note says which TPU kernel it replaces and what
+// bounds it.  Their working-dtype mode (mode 0) runs on the resident body
+// with per-layer skip (decode_resident.cuh, LAYER_SKIP); hbm_entry routes
+// each mode to its body.
 //
-// Design: B1's (wavenet_decode.cu) -- one thread block per tile of S
-// streams, the step loop inside the block, the weights and one ring per
-// layer in device memory, activations in shared memory -- with what the
-// scaled models need:
+// Design: one thread block per tile of S streams, the step loop inside
+// the block, the weights and one ring per layer in device memory,
+// activations in shared memory, every product over the whole block with
+// split partial sums and a barrier, with what the scaled models need:
 //
 // - the skip projection is accumulated layer by layer into skip_acc [S, Cs]
 //   (f32), and the block holds only the current layer's tap, so the
@@ -16,8 +19,8 @@
 // - each layer reads its ring tap and writes its input into the same slot
 //   in one pass, the same element by the same thread, so a read always
 //   precedes the write of its slot (no prefetch, so no race for any d);
-// - weights in the working dtype, or int8 with f32 scale rows per output
-//   column applied after the product (kQuant);
+// - int8 weights with f32 scale rows per output column applied after the
+//   product, activations in the working dtype (mode 1);
 // - with Q8 (WaveNet only) the products are s8 x s8 sums in int32, plain
 //   integer multiply-adds over int8 weights and int32 activation codes:
 //   tap and x rows quantized per row (dynamic max|v| / 127, or a static
@@ -30,6 +33,7 @@
 #pragma once
 
 #include "decode_common.cuh"
+#include "decode_resident.cuh"
 
 namespace decode {
 
@@ -107,7 +111,8 @@ struct HbmArgs {
 };
 
 struct HbmWeights {
-  const void *ecur, *eprev, *fg, *dense, *skip, *post1, *post2;  // working dtype or int8
+  const void *ecur, *eprev;                      // working dtype
+  const void *fg, *dense, *skip, *post1, *post2;  // int8
   // int8 weights: per-output-column f32 scales ([L, 2Cd], [L, Cr], [L, Cs],
   // [Cs], [Q]); with Q8 dense and skip already carry the 1/127 of z's codes
   const float *gscale, *dscale, *sscale, *p1scale, *p2scale;
@@ -118,7 +123,7 @@ struct HbmWeights {
 template <typename T, typename WT, int S, bool AE, bool Q8>
 __global__ void __launch_bounds__(kThreads, 1)
     hbm_decode_kernel(const HbmArgs a, const HbmWeights w, T* __restrict__ ring) {
-  constexpr bool kQuant = sizeof(WT) == 1;
+  static_assert(sizeof(WT) == 1, "int8 weights (the working dtype runs on decode_resident.cuh)");
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int L = a.L, Cr = a.Cr, Cd = a.Cd, Cs = a.Cs, Q = a.Q, Cd2 = 2 * a.Cd;
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           } else {
             v = red_sum<S>(red_a, sp, Cd2, s, n);
           }
-          if constexpr (kQuant) v = __fmul_rn(v, w.gscale[i * Cd2 + n]);
+          v = __fmul_rn(v, w.gscale[i * Cd2 + n]);
           if constexpr (AE) {
             v = __fadd_rn(v, Num<T>::load(cond_fg + ((size_t)(b0 + s) * a.F + frame[s]) * L * Cd2 +
                                           i * Cd2 + n));
@@ -254,7 +259,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int idx = tid; idx < S * Cr; idx += kThreads) {
         const int s = idx / Cr, c = idx - s * Cr;
         float v = Q8 ? (float)red_sum_i<S>(ia, sp, Cr, s, c) : red_sum<S>(red_a, sp, Cr, s, c);
-        if constexpr (kQuant) v = __fmul_rn(v, w.dscale[i * Cr + c]);
+        v = __fmul_rn(v, w.dscale[i * Cr + c]);
         const float xv = Num<T>::round(__fadd_rn(x[idx], v));
         x[idx] = xv;
         if (i + 1 < L) {
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int idx = tid; idx < S * Cs; idx += kThreads) {
         const int s = idx / Cs, n = idx - s * Cs;
         float v = Q8 ? (float)red_sum_i<S>(ib, sk, Cs, s, n) : red_sum<S>(red_b, sk, Cs, s, n);
-        if constexpr (kQuant) v = __fmul_rn(v, w.sscale[i * Cs + n]);
+        v = __fmul_rn(v, w.sscale[i * Cs + n]);
         acc[idx] = __fadd_rn(acc[idx], v);
       }
       __syncthreads();
@@ -297,8 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (Q8) {
         v = __fmul_rn(__fmul_rn((float)red_sum_i<S>(ib, sp, Cs, s, n), rs[s]), w.p1scale[n]);
       } else {
-        v = red_sum<S>(red_b, sp, Cs, s, n);
-        if constexpr (kQuant) v = __fmul_rn(v, w.p1scale[n]);
+        v = __fmul_rn(red_sum<S>(red_b, sp, Cs, s, n), w.p1scale[n]);
       }
       if constexpr (AE) {
         v = __fadd_rn(v, Num<T>::load(cond_post + ((size_t)(b0 + s) * a.F + frame[s]) * Cs + n));
@@ -331,8 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if constexpr (Q8) {
           v[m] = __fmul_rn(__fmul_rn((float)red_sum_i<S>(ib, sp, Q, s, n), rs[s]), w.p2scale[n]);
         } else {
-          v[m] = red_sum<S>(red_b, sp, Q, s, n);
-          if constexpr (kQuant) v[m] = __fmul_rn(v[m], w.p2scale[n]);
+          v[m] = __fmul_rn(red_sum<S>(red_b, sp, Q, s, n), w.p2scale[n]);
         }
       }
       if (!AE && a.sample_mode == 1) {
@@ -386,13 +389,12 @@ cudaError_t hbm_dispatch_s(int S, const HbmArgs& a, const HbmWeights& w, int G, 
   }
 }
 
-// dtype: 0 float32, 1 bfloat16.  mode: 0 weights in the working dtype,
-// 1 int8 weights, 2 int8 weights and int8 products (WaveNet only).
+// dtype: 0 float32, 1 bfloat16.  mode: 1 int8 weights, 2 int8 weights and
+// int8 products (WaveNet only).
 template <typename T, bool AE>
 cudaError_t hbm_dispatch_mode(int mode, int S, const HbmArgs& a, const HbmWeights& w, int G,
                               size_t smem, void* ring, cudaStream_t stream) {
   switch (mode) {
-    case 0: return hbm_dispatch_s<T, T, AE, false>(S, a, w, G, smem, ring, stream);
     case 1: return hbm_dispatch_s<T, int8_t, AE, false>(S, a, w, G, smem, ring, stream);
     case 2:
       if constexpr (AE) {
@@ -418,23 +420,49 @@ cudaError_t hbm_dispatch(int dtype, int mode, int S, const HbmArgs& a, const Hbm
 // The device pointers of a launch, in the order of POINTERS in
 // kernels/wavenet_decode_hbm.py; null where a kernel takes none (pos0,
 // cond_fg, cond_post for WaveNet; act_inv without static scales; the scale
-// rows without int8 weights).
+// rows without int8 weights; spans unless the phases are timed).  In mode
+// 0, fg and dense are the chain packs (kernels/wavenet_decode.py::chain_packs).
 enum HbmPtr {
   kDil, kRing, kS0, kPrev0, kPos0, kEcur, kEprev, kFg, kDense, kSkip, kPost1, kPost2,
-  kGscale, kDscale, kSscale, kP1scale, kP2scale, kActInv, kCondFg, kCondPost, kOut
+  kGscale, kDscale, kSscale, kP1scale, kP2scale, kActInv, kCondFg, kCondPost, kOut, kHbmSpans
 };
 
-// What both C entry points do: fill HbmArgs and HbmWeights and launch.
-// dtype: 0 float32, 1 bfloat16.  mode: 0 weights in the working dtype, 1
-// int8 weights, 2 int8 weights and products (WaveNet only).  dims: L, Cr,
-// Cd, Cs, Q, ring_len, F, pool (F = pool = 1 for WaveNet).  offs: the 7
-// carve offsets in floats, smem_bytes the carve's size.  sample_mode: 0
-// argmax, 1 categorical.  Returns the CUDA error code of the launch (0 on
-// success); never synchronises.
+// What both C entry points do: fill the arguments of the mode's body and
+// launch.  dtype: 0 float32, 1 bfloat16.  mode: 0 weights in the working
+// dtype (decode_resident.cuh with LAYER_SKIP), 1 int8 weights, 2 int8
+// weights and products (WaveNet only).  dims: L, Cr, Cd, Cs, Q, ring_len,
+// F, pool (F = pool = 1 for WaveNet).  offs: the carve of the mode's body
+// in floats (mode 0: resident_entry's 8, else 7), smem_bytes the carve's
+// size.  sample_mode: 0 argmax, 1 categorical.  A spans pointer runs the
+// phase-timed build (mode 0, WaveNet, float32, one stream a block).
+// Returns the CUDA error code of the launch (0 on success); never
+// synchronises.
 template <bool AE>
 int hbm_entry(int dtype, int mode, int S, int G, const int* dims, const int* offs,
               int smem_bytes, void* const* p, int n_steps, int sample_mode, float temperature,
               uint32_t seed, void* stream) {
+  if (mode == 0) {
+    void* rp[kResSpans + 1];
+    rp[kResDil] = p[kDil];
+    rp[kResRing] = p[kRing];
+    rp[kResS0] = p[kS0];
+    rp[kResPrev0] = p[kPrev0];
+    rp[kResPos0] = p[kPos0];
+    rp[kResEcur] = p[kEcur];
+    rp[kResEprev] = p[kEprev];
+    rp[kResFg] = p[kFg];
+    rp[kResDense] = p[kDense];
+    rp[kResSkip] = p[kSkip];
+    rp[kResPost1] = p[kPost1];
+    rp[kResPost2] = p[kPost2];
+    rp[kResCondFg] = p[kCondFg];
+    rp[kResCondPost] = p[kCondPost];
+    rp[kResOut] = p[kOut];
+    rp[kResSpans] = p[kHbmSpans];
+    return resident_entry<AE, true>(dtype, S, G, dims, offs, smem_bytes, rp, n_steps,
+                                    sample_mode, temperature, seed, stream);
+  }
+  if (p[kHbmSpans] != nullptr) return (int)cudaErrorInvalidValue;
   HbmArgs a{};
   a.L = dims[0];
   a.Cr = dims[1];

@@ -1,6 +1,8 @@
 // The resident fused decode shared by wavenet_decode.cu (the WaveNet
 // decode, AE = false) and wavenet_ae_decode.cu (the autoencoder's
-// conditioned decode, AE = true).  Each source's note says which TPU kernel
+// conditioned decode, AE = true), and, with LAYER_SKIP, by the
+// working-dtype mode of the weight-streaming kernels wavenet_decode_hbm.cu
+// and wavenet_ae_decode_hbm.cu.  Each source's note says which TPU kernel
 // it replaces and what bounds it.
 //
 // Design: one thread block of 512 threads per tile of S <= 16 streams
@@ -36,14 +38,37 @@
 //   and sum their partials with shuffles; each lane keeps 8 row loads in
 //   flight (4 at 16 streams).  skip stays one product over zall after the
 //   chain, so the rounding points are decode_reference's.
+// - LAYER_SKIP (the weight-streaming kernels' working-dtype mode, S <= 4):
+//   the skip projection is accumulated layer by layer, skip_acc [S][Cs] +=
+//   z_i @ skip_i in float32, as their decode_reference does, in place of
+//   one product over zall [S][L*Cd], which the scaled width's carve cannot
+//   hold.  The chain writes z_i into a ring of two layers, z [2][S][Cd]
+//   (slot i mod 2).  The copying warps, after issuing their copies at the
+//   top of layer i, compute layer i - 1's skip product while the chain
+//   runs layer i; layer L - 1's runs on the whole block after the last
+//   barrier of the step, and the step ends with post alone.  Two slots
+//   suffice with one barrier a layer: z_{i-1} is read between barrier i
+//   and barrier i + 1, and the chain writes z_{i+1} into its slot only
+//   after barrier i + 1.  Each (s, n) of skip_acc belongs to one lane in a
+//   layer, which adds the layer's whole sum (its K-split partials summed
+//   by shuffles first) with __fadd_rn, in layer order: decode_reference's
+//   skip_acc = skip_acc + z @ skip_i.  Layer 0 assigns (0 + v = v), so
+//   nothing is zeroed; skip_acc shares its space with h1, and layer L - 1
+//   writes h1 = round(relu(skip_acc)) in its place.  The skip product
+//   keeps 16 row loads in flight a lane.  With at most 2 streams a block two
+//   warps run each stream's chain, each half of a layer's columns, with a
+//   named barrier between them once z is written, which halves the chain's
+//   time a layer at K = 2Cr = 128.
 // - The shipped width (Cr = Cd = 32) has its own instantiation with the
-//   widths known at compile time; other widths read them from Args.
+//   widths known at compile time, and with LAYER_SKIP the scaled width
+//   (Cr = Cd = 64); other widths read them from Args.
 // - The carve (offsets, stage count) is computed by the Python wrapper
 //   (kernels/wavenet_decode.py::smem_layout) and passed in; the wrapper
 //   refuses a tile that it does not fit.
 //
 // With SPANS (float, one stream, WaveNet), thread 0 of block 0 (lane 0 of
-// the chain warp) sums clock64 cycles per phase (kSpans).
+// the chain warp) sums clock64 cycles per phase (kSpans); with LAYER_SKIP
+// its skip phase is layer L - 1's product, the others' wait in the barrier.
 
 #pragma once
 
@@ -134,23 +159,26 @@ constexpr int kCols = sizeof(T) == 2 && S <= 4 ? 8 : 4;
 template <int S>
 constexpr int kInFlight = S >= 16 ? 4 : 8;
 
-// out[s][n] = sum_k in[s*ld + k] * W[k*N + n] over the whole block, N a
-// multiple of VC = kCols: lane groups of VC adjacent columns, the lanes of a
-// warp sharing a group split K (rows k = ks, ks + kw, ...) and sum by
-// shuffles; epi(s, n, v[4]) gets the totals of columns n..n+3 (one lane per
-// group calls it, VC / 4 times).
-template <typename T, int S, typename Epi>
+// out[s][n] = sum_k in[s*ld + k] * W[k*N + n] over warps w0 .. kWarps - 1
+// (the whole block by default), N a multiple of VC = kCols: lane groups of
+// VC adjacent columns, the lanes of a warp sharing a group split K (rows
+// k = ks, ks + kw, ...) and sum by shuffles; epi(s, n, v[4]) gets the
+// totals of columns n..n+3 (one lane per group calls it, VC / 4 times).
+// U row loads in flight a lane, in batches of U (rows past the last full
+// batch one by one).
+template <typename T, int S, int U = kInFlight<S>, typename Epi>
 __device__ __forceinline__ void matvec_cols(const float* in, int ld, int K,
-                                            const T* __restrict__ W, int N, Epi epi) {
-  constexpr int VC = kCols<T, S>, U = kInFlight<S>;
+                                            const T* __restrict__ W, int N, Epi epi,
+                                            int w0 = 0) {
+  constexpr int VC = kCols<T, S>;
   using C = Cols<T, VC>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) - w0, nw = kWarps - w0;
   const int groups = N / VC;
-  const int per = (groups + kWarps - 1) / kWarps;
+  const int per = (groups + nw - 1) / nw;
   int gpw = 1;  // groups a warp takes at once: a power of two <= 32
   while (gpw < per && gpw < 32) gpw <<= 1;
   const int kw = 32 / gpw, gl = lane & (gpw - 1), ks = lane / gpw;
-  for (int gb = warp * gpw; gb < groups; gb += kWarps * gpw) {  // uniform over the warp
+  for (int gb = warp * gpw; gb < groups; gb += nw * gpw) {  // uniform over the warp
     const int g = gb + gl;
     float acc[S][VC];
 #pragma unroll
@@ -247,11 +275,36 @@ __device__ __forceinline__ void chain_dot(float (&acc)[NO][4], const TI* in, int
   }
 }
 
+// With LAYER_SKIP, one layer's skip product on warps w0 .. kWarps - 1:
+// acc[s][n] += (z @ skip_i)[s][n] for acc = h1 [S][Cs] (acc = the product
+// for the first layer, so nothing is zeroed); for the last layer h1 =
+// round(relu(acc)).  Each (s, n) is one lane's, which adds the layer's whole
+// sum with __fadd_rn.
+template <typename T, int S>
+__device__ __forceinline__ void layer_skip(const float* z, const T* __restrict__ skip_i,
+                                           float* h1, int Cd, int Cs, bool first, bool last,
+                                           int w0) {
+  matvec_cols<T, S, 16>(z, Cd, Cd, skip_i, Cs, [&](int s, int n, const float (&v)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* acc = h1 + s * Cs + n + j;
+      const float r = first ? v[j] : __fadd_rn(*acc, v[j]);
+      *acc = last ? Num<T>::round(fmaxf(r, 0.f)) : r;
+    }
+  }, w0);
+}
+
 // W: the chain width Cr = Cd when it is known at compile time (32, the
-// shipped width), else 0 and the widths come from Args.
-template <typename T, int S, bool AE, bool SPANS, int W>
+// shipped width; 64, the scaled width, with LAYER_SKIP), else 0 and the
+// widths come from Args.  LAYER_SKIP: per-layer skip accumulation (above).
+template <typename T, int S, bool AE, bool SPANS, int W, bool LAYER_SKIP>
 __global__ void __launch_bounds__(kThreads, 1)
     resident_kernel(const ResArgs a, const ResWeights wt, T* __restrict__ ring) {
+  static_assert(!LAYER_SKIP || S <= 4, "per-layer skip: at most 4 streams a block");
+  // warps on each stream's chain: with LAYER_SKIP and at most 2 streams two,
+  // each taking half of a layer's columns (a named barrier between them
+  // once z is written), else one
+  constexpr int CW = LAYER_SKIP && S <= 2 ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Cr = W ? W : a.Cr, Cd = W ? W : a.Cd;
@@ -266,8 +319,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const T* cond_fg = static_cast<const T*>(wt.cond_fg);
   const T* cond_post = static_cast<const T*>(wt.cond_post);
   float* x = smem;                  // [S][Cr] residual stream
-  float* zall = smem + a.off_zall;  // [S][L*Cd] gated activations, layer-major
-  float* h1 = smem + a.off_h1;      // [S][Cs]
+  // [S][L*Cd] gated activations, layer-major; with LAYER_SKIP [2][S][Cd],
+  // layer i in slot i mod 2
+  float* zall = smem + a.off_zall;
+  float* h1 = smem + a.off_h1;      // [S][Cs] (skip_acc before it with LAYER_SKIP)
   float* logits = h1;               // [S][Q] (h1 is dead once post1 is done)
   float* h2 = smem + a.off_h2;      // [S][Cs]
   float* ptap = smem + a.off_ptap;  // [2][S][2Cd] tap halves of fg, by layer parity
@@ -292,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // With a spare warp per stream and 3 or more stages, warp S + s computes
   // stream s's tap half of fg for the next layer (its stage has landed one
   // layer earlier), so the chain computes only the x half.
-  const bool helpers = 2 * S <= kWarps && a.n_stages >= 3;
+  const bool helpers = (CW + 1) * S <= kWarps && a.n_stages >= 3;
   const int pending = a.n_stages - (helpers ? 3 : 2);  // groups left in flight at a layer's top
   // the tap half of layer gl's f_c and g_c, from its stage, for stream s
   auto tap_half = [&](int gl, int s, int c, float& lo, float& hi) {
@@ -303,14 +358,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     lo = (acc[0][0] + acc[0][1]) + (acc[0][2] + acc[0][3]);
     hi = (acc[1][0] + acc[1][1]) + (acc[1][2] + acc[1][3]);
   };
-  auto helper_pass = [&](int gl) {  // by warps S .. 2S - 1
-    if (helpers && warp >= S && warp < 2 * S) {
-      const int s = warp - S;
+  auto helper_pass = [&](int gl) {  // by warps CW*S .. (CW+1)*S - 1
+    if (helpers && warp >= CW * S && warp < (CW + 1) * S) {
+      const int s = warp - CW * S;
       float* out = ptap + ((gl & 1) * S + s) * 2 * Cd;
       for (int c = lane; c < Cd; c += 32) tap_half(gl, s, c, out[c], out[Cd + c]);
     }
   };
-
   const int b0 = blockIdx.x * S;
   T* ring_b = ring + (size_t)b0 * a.ring_len * Cr;
   if (tid < S) {
@@ -333,7 +387,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // stage; one commit group per call, empty past the last step.  The warps
   // that run neither a chain nor a tap half copy when there are any, so
   // neither waits on the copies; the others copy nothing and commit nothing.
-  const int w0 = helpers && 2 * S < kWarps ? 2 * S : S < kWarps ? S : 0;  // first copying warp
+  const int w0 = helpers && (CW + 1) * S < kWarps ? (CW + 1) * S
+                 : CW * S < kWarps ? CW * S : 0;  // first copying warp
   const int n_copy = kThreads - 32 * w0, copy_id = tid - 32 * w0;
   auto issue = [&](int gl) {
     const int tt = gl / L, i = gl - tt * L;
@@ -400,17 +455,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       issue(gl + a.n_stages - 1);  // into the stage layer i - 1 used
       mark(2);
-      if (warp >= S) {
+      if (warp >= CW * S) {
         helper_pass(gl + 1);
+        if constexpr (LAYER_SKIP) {  // the copying warps: layer i - 1's skip
+          if (i > 0 && warp >= w0) {
+            layer_skip<T, S>(zall + ((i - 1) & 1) * S * Cd, skip + (size_t)(i - 1) * Cd * Cs,
+                             h1, Cd, Cs, i == 1, false, w0);
+          }
+        }
         continue;
       }
-      const int s = warp;
+      const int s = warp / CW, c0 = lane + 32 * (warp % CW);  // stream, first column
       const T* st = reinterpret_cast<const T*>(stages + (size_t)(gl % a.n_stages) * a.stage_floats);
       const T* Wfg = st;  // fg^T
       const T* Wd = st + n_fg;  // dense^T
       float* xs = x + s * Cr;
-      float* zs = zall + s * LCd + i * Cd;
-      for (int c = lane; c < Cd; c += 32) {  // f_c and g_c: columns c and Cd + c
+      float* zs = LAYER_SKIP ? zall + ((i & 1) * S + s) * Cd : zall + s * LCd + i * Cd;
+      for (int c = c0; c < Cd; c += 32 * CW) {  // f_c and g_c: columns c and Cd + c
         float lo_t, hi_t;  // [tap | x] @ fg = tap half + x half
         if (helpers) {
           const float* h = ptap + ((gl & 1) * S + s) * 2 * Cd;
@@ -436,8 +497,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         zs[c] = Num<T>::round(tanhf(f) * (1.f / (1.f + expf(-g))));
       }
       mark(3);
-      __syncwarp();  // z is complete, and every lane has read x
-      for (int c = lane; c < Cr; c += 32) {
+      // z is complete, and every lane of the stream's chain has read x
+      if constexpr (CW > 1) {
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + s), "r"(32 * CW) : "memory");
+      } else {
+        __syncwarp();
+      }
+      for (int c = c0; c < Cr; c += 32 * CW) {
         float acc[1][4] = {};
         const T* const rows[1] = {Wd + c * ld_dense};
         chain_dot<1>(acc, zs, Cd, rows);
@@ -448,14 +514,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       mark(4);
     }
-    __syncthreads();  // zall complete
+    __syncthreads();  // zall complete (LAYER_SKIP: z of the last layer, the skip before it)
     mark(1);
 
-    // skip projection of all layers at once, then the post stack
-    matvec_cols<T, S>(zall, LCd, LCd, skip, Cs, [&](int s, int n, const float (&v)[4]) {
+    // skip projection of all layers at once (LAYER_SKIP: of the last
+    // layer, on the whole block), then the post stack
+    if constexpr (LAYER_SKIP) {
+      layer_skip<T, S>(zall + ((L - 1) & 1) * S * Cd, skip + (size_t)(L - 1) * Cd * Cs, h1, Cd,
+                       Cs, L == 1, true, 0);
+    } else {
+      matvec_cols<T, S>(zall, LCd, LCd, skip, Cs, [&](int s, int n, const float (&v)[4]) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) h1[s * Cs + n + j] = Num<T>::round(fmaxf(v[j], 0.f));
-    });
+        for (int j = 0; j < 4; ++j) h1[s * Cs + n + j] = Num<T>::round(fmaxf(v[j], 0.f));
+      });
+    }
     __syncthreads();
     mark(5);
     matvec_cols<T, S>(h1, Cs, Cs, post1, Cs, [&](int s, int n, const float (&v)[4]) {
@@ -508,11 +580,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int S, bool AE, bool SPANS>
+template <typename T, int S, bool AE, bool SPANS, bool LAYER_SKIP>
 cudaError_t resident_launch_one(const ResArgs& a, const ResWeights& w, int G, size_t smem,
                                 void* ring, cudaStream_t stream) {
-  auto kern = a.Cr == 32 && a.Cd == 32 ? resident_kernel<T, S, AE, SPANS, 32>
-                                       : resident_kernel<T, S, AE, SPANS, 0>;
+  // the width with an instantiation of its own: shipped (B1/B3), scaled (B2/B4)
+  constexpr int kW = LAYER_SKIP ? 64 : 32;
+  auto kern = a.Cr == kW && a.Cd == kW ? resident_kernel<T, S, AE, SPANS, kW, LAYER_SKIP>
+                                       : resident_kernel<T, S, AE, SPANS, 0, LAYER_SKIP>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -520,15 +594,23 @@ cudaError_t resident_launch_one(const ResArgs& a, const ResWeights& w, int G, si
   return cudaGetLastError();
 }
 
-template <typename T, bool AE>
+// Streams a block: 1 to 16, to 4 with LAYER_SKIP (kernels/
+// wavenet_decode_hbm.py::LAYER_SKIP_STREAMS says why).
+template <typename T, bool AE, bool LAYER_SKIP>
 cudaError_t resident_dispatch_s(int S, const ResArgs& a, const ResWeights& w, int G,
                                 size_t smem, void* ring, cudaStream_t stream) {
   switch (S) {
-    case 1: return resident_launch_one<T, 1, AE, false>(a, w, G, smem, ring, stream);
-    case 2: return resident_launch_one<T, 2, AE, false>(a, w, G, smem, ring, stream);
-    case 4: return resident_launch_one<T, 4, AE, false>(a, w, G, smem, ring, stream);
-    case 8: return resident_launch_one<T, 8, AE, false>(a, w, G, smem, ring, stream);
-    case 16: return resident_launch_one<T, 16, AE, false>(a, w, G, smem, ring, stream);
+    case 1: return resident_launch_one<T, 1, AE, false, LAYER_SKIP>(a, w, G, smem, ring, stream);
+    case 2: return resident_launch_one<T, 2, AE, false, LAYER_SKIP>(a, w, G, smem, ring, stream);
+    case 4: return resident_launch_one<T, 4, AE, false, LAYER_SKIP>(a, w, G, smem, ring, stream);
+    case 8:
+      if constexpr (!LAYER_SKIP) return resident_launch_one<T, 8, AE, false, false>(a, w, G, smem,
+                                                                                   ring, stream);
+      return cudaErrorInvalidValue;
+    case 16:
+      if constexpr (!LAYER_SKIP) return resident_launch_one<T, 16, AE, false, false>(a, w, G, smem,
+                                                                                    ring, stream);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -541,14 +623,15 @@ enum ResPtr {
   kResSkip, kResPost1, kResPost2, kResCondFg, kResCondPost, kResOut, kResSpans
 };
 
-// What both C entry points do: fill ResArgs and ResWeights and launch.
+// What the C entry points do: fill ResArgs and ResWeights and launch.
 // dtype: 0 float32, 1 bfloat16.  dims: L, Cr, Cd, Cs, Q, ring_len, F, pool
-// (F = pool = 1 for WaveNet).  offs: zall, h1, h2, ptap, stage, stage
-// stride (in floats), stage count, ints.  smem_bytes: the carve's size.  sample_mode:
-// 0 argmax, 1 categorical.  With a spans pointer the phase-timed build runs
-// (WaveNet, float32, one stream a block only).  Returns the CUDA error code
-// of the launch (0 on success); never synchronises.
-template <bool AE>
+// (F = pool = 1 for WaveNet).  offs: zall (LAYER_SKIP: the z ring), h1, h2,
+// ptap, stage, stage stride (in floats), stage count, ints.  smem_bytes:
+// the carve's size.  sample_mode: 0 argmax, 1 categorical.  With a spans
+// pointer the phase-timed build runs (WaveNet, float32, one stream a block
+// only).  Returns the CUDA error code of the launch (0 on success); never
+// synchronises.
+template <bool AE, bool LAYER_SKIP>
 int resident_entry(int dtype, int S, int G, const int* dims, const int* offs, int smem_bytes,
                    void* const* p, int n_steps, int sample_mode, float temperature,
                    uint32_t seed, void* stream) {
@@ -590,12 +673,16 @@ int resident_entry(int dtype, int S, int G, const int* dims, const int* offs, in
       return (int)cudaErrorInvalidValue;
     } else {
       if (dtype != 0 || S != 1) return (int)cudaErrorInvalidValue;
-      return (int)resident_launch_one<float, 1, false, true>(a, w, G, smem, p[kResRing], st);
+      return (int)resident_launch_one<float, 1, false, true, LAYER_SKIP>(a, w, G, smem,
+                                                                         p[kResRing], st);
     }
   }
-  if (dtype == 0) return (int)resident_dispatch_s<float, AE>(S, a, w, G, smem, p[kResRing], st);
+  if (dtype == 0) {
+    return (int)resident_dispatch_s<float, AE, LAYER_SKIP>(S, a, w, G, smem, p[kResRing], st);
+  }
   if (dtype == 1) {
-    return (int)resident_dispatch_s<__nv_bfloat16, AE>(S, a, w, G, smem, p[kResRing], st);
+    return (int)resident_dispatch_s<__nv_bfloat16, AE, LAYER_SKIP>(S, a, w, G, smem,
+                                                                   p[kResRing], st);
   }
   return (int)cudaErrorInvalidValue;
 }

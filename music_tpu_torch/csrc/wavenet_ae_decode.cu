@@ -34,8 +34,8 @@ using namespace decode;
 // returns the CUDA error code, 0 on success.
 extern "C" int wavenet_ae_decode(int dtype, int S, int G, const int* dims, const int* offs,
                                  int smem_bytes, void* const* ptrs, int n_steps, void* stream) {
-  return resident_entry<true>(dtype, S, G, dims, offs, smem_bytes, ptrs, n_steps, 0, 1.f, 0u,
-                              stream);
+  return resident_entry<true, false>(dtype, S, G, dims, offs, smem_bytes, ptrs, n_steps, 0,
+                                     1.f, 0u, stream);
 }
 
 extern "C" const char* wavenet_ae_decode_error(int code) {

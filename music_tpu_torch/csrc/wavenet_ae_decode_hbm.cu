@@ -6,25 +6,26 @@
 // Replaces music_tpu/kernels/wavenet_ae_decode_hbm.py::_ae_kernel_hbm, the
 // Pallas kernel that streams the decoder weights and the [F, S, C]
 // conditioning tables from HBM to VMEM.  Its plain PyTorch version is
-// music_tpu_torch/kernels/wavenet_ae_decode_hbm.py::decode_reference.  The
-// kernel body is hbm_decode_kernel<.., AE = true, ..> in decode_hbm.cuh:
-// wavenet_decode_hbm.cu's decode plus the conditioning of
+// music_tpu_torch/kernels/wavenet_ae_decode_hbm.py::decode_reference.
+//
+// It is wavenet_decode_hbm.cu's decode plus the conditioning of
 // wavenet_ae_decode.cu -- each stream's frame min((pos0[b] + t) / pool,
 // F - 1) from its own clock, row (b, frame) of cond_fg [B, F, L*2Cd] added
-// to layer i's pre-activation after the int8 column scale, row (b, frame)
-// of cond_post [B, F, Cs] added after post1's scale -- and the swapped gate
-// tanh(fg[Cd:]) * sigmoid(fg[:Cd]).  The tables stay in device memory (the
-// TPU kernel's per-stream cur/nxt staging reaches the same frame).
+// to layer i's pre-activation (after the int8 column scale), row (b,
+// frame) of cond_post [B, F, Cs] added after post1 (and its scale) -- and
+// the swapped gate tanh(fg[Cd:]) * sigmoid(fg[:Cd]).  The tables stay in
+// device memory (the TPU kernel's per-stream cur/nxt staging reaches the
+// same frame).  Modes, each on its own body: 0, weights in the working
+// dtype, on decode_resident.cuh with AE and LAYER_SKIP (the cond_fg rows
+// ride in each layer's stage, as in wavenet_ae_decode.cu); 1, int8 weights
+// (weight-only), on decode_hbm.cuh.  f32 or bf16 activations and tables;
+// argmax only.
 //
-// Modes: f32 or bf16 activations and tables; weights in the working dtype
-// or int8 with per-output-column scales (weight-only).  Argmax only.
-//
-// Bound: as wavenet_decode_hbm.cu -- the bytes term (19.1 MB f32 weights a
-// step per block, plus the table rows) and the 4.75 M multiply-adds a
-// stream-step are each a few microseconds; the dependent weight loads and
-// barriers of 40 sequential layers bound this design, with two table loads
-// per layer per stream that do not depend on the products.
+// Bound: as wavenet_decode_hbm.cu -- one SM's L2 read rate over the 19.1
+// MB (f32) a block reads a step, plus the table rows (2Cd a layer a
+// stream); the int8 mode by its dependent loads and barriers.
 
+#include "decode_resident.cuh"
 #include "decode_hbm.cuh"
 
 using namespace decode;

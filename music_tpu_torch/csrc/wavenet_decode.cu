@@ -41,8 +41,8 @@ using namespace decode;
 extern "C" int wavenet_decode(int dtype, int S, int G, const int* dims, const int* offs,
                               int smem_bytes, void* const* ptrs, int n_steps, int sample_mode,
                               float temperature, uint32_t seed, void* stream) {
-  return resident_entry<false>(dtype, S, G, dims, offs, smem_bytes, ptrs, n_steps, sample_mode,
-                               temperature, seed, stream);
+  return resident_entry<false, false>(dtype, S, G, dims, offs, smem_bytes, ptrs, n_steps,
+                                      sample_mode, temperature, seed, stream);
 }
 
 extern "C" const char* wavenet_decode_error(int code) {

@@ -7,28 +7,35 @@
 // Pallas kernel that streams each layer's weights from HBM to VMEM every
 // step.  Its plain PyTorch version is
 // music_tpu_torch/kernels/wavenet_decode_hbm.py::decode_reference (same
-// packs, rounding points, quantization and Philox draws).  The kernel body
-// is hbm_decode_kernel<.., AE = false, ..> in decode_hbm.cuh.
+// packs, rounding points, quantization and Philox draws).
 //
-// Modes: f32 or bf16 activations (rings, embeddings and rounding points in
-// the working dtype); weights in the working dtype or int8 with
-// per-output-column scales applied after each product (weight-only);
-// int8 products (s8 x s8 -> s32, plain integer multiply-adds) with
-// per-row dynamic activation scales or a static scale per layer; argmax or
-// categorical (Philox4x32-10, as wavenet_decode.cu).
+// Modes, each on its own body:
+// - 0, weights in the working dtype (f32 or bf16): the resident body of
+//   wavenet_decode.cu (decode_resident.cuh) with LAYER_SKIP -- one warp per
+//   stream on the 40-layer chain, the chain's weights and taps staged in
+//   shared memory with cp.async by the other warps, one barrier a layer --
+//   and the skip product accumulated layer by layer, skip_acc += z_i @
+//   skip_i in f32, by the copying warps one layer behind the chain; the
+//   scaled width (Cr = Cd = 64) has its own instantiation, 1 to 8 streams
+//   a block.
+// - 1, int8 weights with per-output-column scales applied after each
+//   product, and 2, int8 products too (s8 x s8 -> s32, plain integer
+//   multiply-adds) with per-row dynamic activation scales or a static
+//   scale per layer: decode_hbm.cuh, every product over the whole block
+//   with split partials, four barriers a layer (five with int8 products).
+// Argmax or categorical (Philox4x32-10, as wavenet_decode.cu).
 //
 // Bound: per step every block reads all weights (19.1 MB f32, 9.6 MB bf16,
-// 4.8 MB int8) from device memory or L2 and does 4.75 M multiply-adds per
-// stream; either term alone is a few microseconds (3.35 TB/s, 67 TFLOP/s
-// f32).  What bounds this design is B1's: the latency of each layer's
-// dependent rounds of weight loads and block barriers (four a layer, five
-// with int8 products), 40 layers in sequence.  At the scaled width the
-// weights no longer fit one SM's carve, so they stay in device memory and
-// are read where they are used; int8 shrinks the bytes 4x but not the
-// number of dependent loads.  A later design prefetches the next layer's
-// weights during the current one (cp.async/TMA) and spreads the layers
-// over a thread block cluster.
+// 4.8 MB int8) from L2 and does 4.75 M multiply-adds per stream; either
+// term alone is a few microseconds for the card (3.35 TB/s, 67 TFLOP/s
+// f32).  What bounds one block is one SM's L2 read rate (~220 GB/s,
+// chip_smoke.py's probe): ~87 us a step in f32 at the scaled width, ~44 in
+// bf16, against which mode 0 overlaps the chain's latency (two dependent
+// products and a gate a layer, K = 128) with the skip reads (256 KB a
+// layer in f32).  The int8 modes are bound by the latency of their
+// dependent rounds of loads and barriers, 40 layers in sequence.
 
+#include "decode_resident.cuh"
 #include "decode_hbm.cuh"
 
 using namespace decode;

@@ -8,16 +8,13 @@ reconstruction in one call (one kernel launch on a CUDA device, the
 kernel's plain version on the CPU), µ-law decode and write 16-bit PCM wavs.
 
 Which kernel decodes is
-:func:`~music_tpu_torch.generate.wavenet_generate.streams_weights`'s rule on
-the float32 bytes of the decoder parameters that enter the kernel
-(:data:`~music_tpu_torch.kernels.wavenet_ae_decode_hbm.DECODER_KEYS`): the
-shipped decoder (5.08 MB) goes to
-:mod:`music_tpu_torch.kernels.wavenet_ae_decode`, a scaled decoder (Cr =
-Cd = 64, Cs = 1024: 19.1 MB) to the weight-streaming
-:mod:`music_tpu_torch.kernels.wavenet_ae_decode_hbm`.  music_tpu's
-``plan_ae_serving`` also sends the shipped decoder to its weight-streaming
-kernel when the resident one does not fit VMEM beside many streams; on the
-card the resident kernel serves any stream count, so the port does not.
+:func:`~music_tpu_torch.generate.wavenet_generate.streams_weights`'s rule:
+:mod:`music_tpu_torch.kernels.wavenet_ae_decode` while its carve holds the
+tile the clips need with its helper warp, else the weight-streaming
+:mod:`music_tpu_torch.kernels.wavenet_ae_decode_hbm` when its carve holds
+more.  The shipped decoder stays resident at any count; a scaled decoder
+(Cr = Cd = 64, Cs = 1024) goes to the weight-streaming kernel in float32.
+music_tpu's ``plan_ae_serving`` routes by VMEM instead.
 """
 
 from __future__ import annotations
@@ -84,8 +81,8 @@ def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed
         )
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype)
     n, device, prime = codes.shape[0], codes.device, codes[:, :prime_len]
-    if streams_weights(4 * sum(params[k].numel() for k in wavenet_ae_decode_hbm.DECODER_KEYS)):
-        S, G = stream_tiling(n, device, wavenet_ae_decode_hbm.max_streams(cfg))
+    if streams_weights(n, device, wavenet_ae_decode, wavenet_ae_decode_hbm, cfg, dtype):
+        S, G = stream_tiling(n, device, wavenet_ae_decode_hbm.max_streams(cfg, dtype))
         return wavenet_ae_decode_hbm.generate_tokens_fused_hbm(
             params, encoding, prime, n_streams=S, n_stream_groups=G, **kw)
     S, G = stream_tiling(n, device, wavenet_ae_decode.max_streams(cfg, dtype))

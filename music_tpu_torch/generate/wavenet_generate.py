@@ -6,16 +6,17 @@ receptive field (+ max dilation) of µ-law silence (code Q//2), decode in
 one call (one kernel launch on a CUDA device, the kernel's plain version on
 the CPU), µ-law decode and write 16-bit PCM wavs.
 
-Which kernel decodes is :func:`streams_weights`'s rule: models whose
-float32 weights reach :data:`STREAMING_MIN_BYTES` go to the
-weight-streaming kernel (:mod:`music_tpu_torch.kernels.wavenet_decode_hbm`,
-e.g. the 4.4x-scaled model, 19.1 MB), the others to
-:mod:`music_tpu_torch.kernels.wavenet_decode` (the shipped model, 5.08 MB).
-It is the counterpart of the size rule of music_tpu's ``_fused_decode``.
-The TPU's ``plan_fused_serving`` also moves the shipped model to its
-weight-streaming kernel past about 128 streams, for lack of VMEM; on the
-card the resident kernel serves any stream count (rings in device memory),
-so the port does not.
+Which kernel decodes is :func:`streams_weights`'s rule: the resident
+kernel (:mod:`music_tpu_torch.kernels.wavenet_decode`) while its
+shared-memory carve holds the tile the streams need with its helper warp,
+else the weight-streaming kernel
+(:mod:`music_tpu_torch.kernels.wavenet_decode_hbm`) when its own carve
+holds more.  The shipped model (5.08 MB) stays resident at any stream
+count; the 4.4x-scaled one (19.1 MB) goes to the weight-streaming kernel in
+float32 (where the resident carve has no room for the helper warp's
+stages) and stays resident in bf16.  music_tpu's ``_fused_decode`` routes
+by a 12 MB weight size instead, a TPU VMEM budget; on the card both
+kernels read their weights from L2 (PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -33,19 +34,30 @@ from music_tpu_torch.ops.conv import full_fp32
 from music_tpu_torch.ops.mulaw import mu_law_decode
 
 BACKENDS = ("fused", "scan")
-STREAMING_MIN_BYTES = 12e6
-"""float32 bytes of the decode kernel's weights from which a model is
-decoded by the weight-streaming kernel (music_tpu's ``_fused_decode``
-threshold, a TPU VMEM budget).  On an H100 the resident kernel is the
-faster one on both sides of it while its shared-memory carve fits the
-tile (PERF.md, section 6)."""
 
 
-def streams_weights(f32_bytes: float) -> bool:
-    """Whether a model whose decode-kernel weights take ``f32_bytes`` in
-    float32 goes to the weight-streaming kernel (B2, or B4 for the
-    autoencoder) rather than the resident one (B1, B3)."""
-    return f32_bytes >= STREAMING_MIN_BYTES
+HELPER_STAGES = 3
+"""Stages the resident kernel's carve needs for its helper warp (the tap
+half of the next layer's product, off the chain)."""
+
+
+def streams_weights(n: int, device: torch.device, resident, streaming, cfg,
+                    dtype: torch.dtype) -> bool:
+    """Whether ``n`` streams of a model go to the weight-streaming kernel
+    (``streaming``: B2, or B4 for the autoencoder) rather than the resident
+    one (``resident``: B1, B3), given as their modules.  The resident kernel
+    takes them while its carve holds the tile :func:`stream_tiling` gives
+    ``n`` streams on the card with :data:`HELPER_STAGES` stages; else the
+    weight-streaming kernel does, if its carve holds more streams a block.
+    On an H100 (PERF.md, section 6) the resident kernel without its helper
+    warp (the 4.4x-scaled model in f32: 2 stages) runs its 40 layers on one
+    warp at K = 128 and loses to the weight-streaming kernel, which splits
+    them over two; with it (bf16) it wins, and past its carve in f32 the
+    weight-streaming kernel's 4 streams a block beat two waves of 2.  Off
+    the card (the plain versions) the tile is one stream."""
+    tile = stream_tiling(n, device)[0] if device.type == "cuda" else 1
+    helper_max = resident.max_streams(cfg, dtype, min_stages=HELPER_STAGES)
+    return helper_max < tile and streaming.max_streams(cfg, dtype) > helper_max
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -97,8 +109,8 @@ def _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature, 
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, sample_mode=sample_mode,
               temperature=temperature, seed=seed)
     n, device = prime.shape[0], prime.device
-    if streams_weights(4 * sum(v.numel() for v in params.values())):
-        S, G = stream_tiling(n, device, wavenet_decode_hbm.max_streams(cfg))
+    if streams_weights(n, device, wavenet_decode, wavenet_decode_hbm, cfg, dtype):
+        S, G = stream_tiling(n, device, wavenet_decode_hbm.max_streams(cfg, dtype))
         return wavenet_decode_hbm.generate_tokens_fused_hbm(
             params, prime, n_streams=S, n_stream_groups=G, **kw)
     S, G = stream_tiling(n, device, wavenet_decode.max_streams(cfg, dtype))

@@ -22,6 +22,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-split-compile=0",  # optimize a source's kernels in parallel, on every core
 ]
 
 _LOADED: dict[str, ctypes.CDLL] = {}

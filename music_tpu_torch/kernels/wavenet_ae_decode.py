@@ -32,8 +32,8 @@ import torch
 
 from music_tpu_torch.kernels import _build
 from music_tpu_torch.kernels.wavenet_decode import (
-    ARGTYPES, SMEM_LIMIT, SUPPORTED_STREAMS, chain_packs, check_aligned, check_tile, launch_args,
-    ring_offsets, smem_layout,
+    ARGTYPES, SMEM_LIMIT, SUPPORTED_STREAMS, chain_packs, check_aligned, check_tile, fits,
+    launch_args, ring_offsets, smem_layout,
 )
 from music_tpu_torch.models.wavenet_ae import WaveNetAEConfig, cond_tables, frame_of, gate
 from music_tpu_torch.ops.conv import conv1x1, dilated_causal_conv, full_fp32, token_causal_conv
@@ -45,14 +45,16 @@ launch; the CPU path never does)."""
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def max_streams(cfg: WaveNetAEConfig, dtype: torch.dtype = torch.float32) -> int:
+def max_streams(cfg: WaveNetAEConfig, dtype: torch.dtype = torch.float32,
+                min_stages: int = 2) -> int:
     """The most streams per block (of :data:`SUPPORTED_STREAMS`) whose
     carve (:func:`.wavenet_decode.smem_layout` with the conditioning rows
-    in its stages) fits :data:`SMEM_LIMIT` in ``dtype``; 0 when none does."""
+    in its stages) fits :data:`SMEM_LIMIT` in ``dtype`` with at least
+    ``min_stages`` stages; 0 when none does."""
     dims = (cfg.n_blocks, cfg.de_residual_channel, cfg.de_dilation_channel,
             cfg.de_skip_channel, cfg.quantization_channel)
     return max((s for s in SUPPORTED_STREAMS
-                if smem_layout(*dims, s, dtype, ae=True)[1] <= SMEM_LIMIT), default=0)
+                if fits(smem_layout(*dims, s, dtype, ae=True), min_stages)), default=0)
 
 
 def _check_supported(cfg: WaveNetAEConfig) -> None:

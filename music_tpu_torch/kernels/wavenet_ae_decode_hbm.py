@@ -4,8 +4,10 @@ launch for the whole loop, for decoders too large for
 
 Counterpart of :mod:`music_tpu.kernels.wavenet_ae_decode_hbm` (the Pallas
 kernel ``_ae_kernel_hbm`` and its wrapper ``generate_tokens_fused_hbm``).
-The kernel is ``csrc/wavenet_ae_decode_hbm.cu`` (body in
-``csrc/decode_hbm.cuh``); :func:`decode_reference` is its plain PyTorch
+The kernel is ``csrc/wavenet_ae_decode_hbm.cu``: weights in the working
+dtype (mode 0) on the resident body with per-layer skip
+(``csrc/decode_resident.cuh``), int8 weights (mode 1) on
+``csrc/decode_hbm.cuh``; :func:`decode_reference` is its plain PyTorch
 version.
 
 It is :mod:`.wavenet_decode_hbm`'s decode (per-layer skip accumulation,
@@ -36,8 +38,8 @@ import torch
 from music_tpu_torch.kernels import _build, wavenet_ae_decode
 from music_tpu_torch.kernels.wavenet_decode import ring_offsets
 from music_tpu_torch.kernels.wavenet_decode_hbm import (
-    ARGTYPES, SMEM_LIMIT, SUPPORTED_STREAMS, WEIGHT_KEYS, check_kernel_inputs, col_scaled,
-    dequantize, launch, pack_weights, smem_layout,
+    ARGTYPES, SMEM_LIMIT, WEIGHT_KEYS, check_kernel_inputs, col_scaled, dequantize, launch,
+    pack_weights, smem_layout, streams_of, with_chain_packs,
 )
 from music_tpu_torch.models.wavenet_ae import WaveNetAEConfig, frame_of, gate
 from music_tpu_torch.ops.conv import full_fp32
@@ -51,13 +53,15 @@ DECODER_KEYS = ("de_causal", "fg", "dense", "skip", "conn1", "conn2")
 projections do not: the tables are built on the host)."""
 
 
-def max_streams(cfg: WaveNetAEConfig) -> int:
-    """The most streams per block whose carve fits :data:`SMEM_LIMIT`
-    (float32 activations whatever the working dtype)."""
+def max_streams(cfg: WaveNetAEConfig, dtype: torch.dtype = torch.float32, mode: int = 0) -> int:
+    """The most streams per block whose carve
+    (:func:`.wavenet_decode_hbm.smem_layout` with the conditioning rows in
+    mode 0's stages) fits :data:`SMEM_LIMIT` in ``mode`` (0 working dtype
+    ``dtype``, 1 int8 weights); 0 when none does."""
     dims = (cfg.n_blocks, cfg.de_residual_channel, cfg.de_dilation_channel,
             cfg.de_skip_channel, cfg.quantization_channel)
-    return max((s for s in SUPPORTED_STREAMS if smem_layout(*dims, s)[1] <= SMEM_LIMIT),
-               default=0)
+    return max((s for s in streams_of(mode)
+                if smem_layout(*dims, s, dtype, mode, ae=True)[1] <= SMEM_LIMIT), default=0)
 
 
 def _build_hbm_weights(params: dict, cfg: WaveNetAEConfig, dtype: torch.dtype = torch.float32,
@@ -93,12 +97,14 @@ def prepare(
     """Pad the rows to ``n_streams * n_stream_groups`` with copies of the
     last row (prime, encoding and clock) and build the kernel inputs
     ``(weights, ring, s0, prev0, cond_fg, cond_post, pos0)``; the prime
-    state and the tables are :mod:`.wavenet_ae_decode`'s."""
+    state and the tables are :mod:`.wavenet_ae_decode`'s.  In the working
+    dtype the weights also hold the chain packs that mode 0 stages
+    (:func:`.wavenet_decode_hbm.with_chain_packs`)."""
     _, *state = wavenet_ae_decode.prepare(
         params, encoding, prime, cfg=cfg, n_streams=n_streams,
         n_stream_groups=n_stream_groups, dtype=dtype, pos_offset=pos_offset,
     )
-    return (_build_hbm_weights(params, cfg, dtype, weight_dtype), *state)
+    return (with_chain_packs(_build_hbm_weights(params, cfg, dtype, weight_dtype)), *state)
 
 
 @torch.no_grad()
@@ -202,7 +208,8 @@ def decode_cuda(
     mode, offsets, nbytes = check_kernel_inputs(
         w, ring, {"s0": s0, "prev0": prev0, "pos0": pos0}, (L, Cr, Cd, Cs, Q, ring_len),
         n_streams, dtype, False,
-        extra={"cond_fg": (cond_fg, (B, F, L * 2 * Cd)), "cond_post": (cond_post, (B, F, Cs))})
+        extra={"cond_fg": (cond_fg, (B, F, L * 2 * Cd)), "cond_post": (cond_post, (B, F, Cs))},
+        ae=True)
     if int(pos0.min()) < 0 or int(pos0.max()) + n_steps >= 2**31:
         raise ValueError("clock pos0 + n_steps must stay within [0, 2**31)")
     device = ring.device

@@ -67,16 +67,18 @@ def _pad4(n: int) -> int:
 
 
 def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int, dtype: torch.dtype,
-                ae: bool = False) -> tuple[list[int], int]:
+                ae: bool = False, layer_skip: bool = False) -> tuple[list[int], int]:
     """The resident kernels' shared-memory carve for ``S`` streams per
     block: ``(offsets, bytes)``, as ``csrc/decode_resident.cuh`` reads
     them: the offsets in floats of ``zall, h1, h2, ptap`` and the stages
     (``x`` is at 0), the stage stride in floats, the stage count, and the
     offset of the ints.
 
-    Per stream x ``[Cr]``, zall ``[L*Cd]``, h1 ``[Cs]`` (then the logits
-    ``[Q]``), h2 ``[Cs]`` and two layers' tap halves of fg ``[2, 2Cd]`` in
-    float32; then as many stages as fit, 2 to :data:`MAX_STAGES`, each one
+    Per stream x ``[Cr]``, zall ``[L*Cd]`` (with ``layer_skip``, the
+    weight-streaming kernels' per-layer skip, two layers' z ``[2, Cd]``),
+    h1 ``[Cs]`` (skip_acc before it with ``layer_skip``, the logits
+    ``[Q]`` after it), h2 ``[Cs]`` and two layers' tap halves of fg ``[2,
+    2Cd]`` in float32; then as many stages as fit, 2 to :data:`MAX_STAGES`, each one
     layer's chain operands in ``dtype``: its rows of :func:`chain_packs`
     (fg ``[2Cd, 2Cr + pad]``, dense ``[Cr, Cd + pad]``), every stream's tap
     ``[Cr]`` and, for the autoencoder (``ae``), its conditioning row
@@ -87,7 +89,8 @@ def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int, dtype: torch.
     pad = 16 // esize
     elems = 2 * Cd * (2 * Cr + pad) + Cr * (Cd + pad) + S * Cr + (2 * S * Cd if ae else 0)
     stage = _pad4(-(-esize * elems // 4))
-    sizes = [S * Cr, S * L * Cd, S * max(Cs, Q), S * Cs, 2 * S * 2 * Cd]  # x .. ptap
+    sizes = [S * Cr, S * (2 if layer_skip else L) * Cd, S * max(Cs, Q), S * Cs,
+             2 * S * 2 * Cd]  # x .. ptap
     offsets, o = [], 0
     for n in sizes:
         offsets.append(o)
@@ -100,12 +103,21 @@ def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int, dtype: torch.
     return offsets[1:] + [o, stage, n_stages, end], 4 * end + ints
 
 
-def max_streams(cfg: WaveNetConfig, dtype: torch.dtype = torch.float32) -> int:
+def fits(layout: tuple[list[int], int], min_stages: int = 2) -> bool:
+    """Whether a carve of :func:`smem_layout` fits :data:`SMEM_LIMIT` with at
+    least ``min_stages`` stages (3 give the kernel its helper warp)."""
+    offsets, nbytes = layout
+    return nbytes <= SMEM_LIMIT and offsets[6] >= min_stages
+
+
+def max_streams(cfg: WaveNetConfig, dtype: torch.dtype = torch.float32,
+                min_stages: int = 2) -> int:
     """The most streams per block (of :data:`SUPPORTED_STREAMS`) whose
-    carve fits :data:`SMEM_LIMIT` in ``dtype``; 0 when none does."""
+    carve fits :data:`SMEM_LIMIT` in ``dtype`` with at least ``min_stages``
+    stages; 0 when none does."""
     dims = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
             cfg.quantization_channels)
-    return max((s for s in SUPPORTED_STREAMS if smem_layout(*dims, s, dtype)[1] <= SMEM_LIMIT),
+    return max((s for s in SUPPORTED_STREAMS if fits(smem_layout(*dims, s, dtype), min_stages)),
                default=0)
 
 
@@ -120,13 +132,14 @@ def chain_packs(fg: torch.Tensor, dense: torch.Tensor) -> tuple[torch.Tensor, to
                  for t in (fg, dense))
 
 
-def check_tile(dims: tuple, n_streams: int, dtype: torch.dtype, ae: bool = False):
+def check_tile(dims: tuple, n_streams: int, dtype: torch.dtype, ae: bool = False,
+               layer_skip: bool = False):
     """The carve of a tile of ``n_streams`` (``dims = (L, Cr, Cd, Cs, Q)``),
     refused before any launch when it exceeds :data:`SMEM_LIMIT` or when the
     widths break the kernel's 16-byte copies and loads.  Returns ``(offsets,
     bytes)``."""
     L, Cr, Cd, Cs, Q = dims
-    offsets, nbytes = smem_layout(*dims, n_streams, dtype, ae)
+    offsets, nbytes = smem_layout(*dims, n_streams, dtype, ae, layer_skip)
     if nbytes > SMEM_LIMIT:
         raise ValueError(f"{n_streams} streams per block need {nbytes} bytes of shared memory "
                          f"(limit {SMEM_LIMIT}); take at most max_streams()")

@@ -4,18 +4,21 @@ for models too large for :mod:`.wavenet_decode`'s kernel, with int8 modes.
 Counterpart of :mod:`music_tpu.kernels.wavenet_decode_hbm` (the Pallas
 kernel ``_decode_kernel_hbm`` and its wrapper
 ``generate_tokens_fused_hbm``).  The kernel is
-``csrc/wavenet_decode_hbm.cu`` (body in ``csrc/decode_hbm.cuh``);
-:func:`decode_reference` is its plain PyTorch version, with the same packs,
-rounding points, quantization and Philox draws.
+``csrc/wavenet_decode_hbm.cu``: its working-dtype mode (mode 0) runs on
+the resident body of :mod:`.wavenet_decode` with per-layer skip
+(``csrc/decode_resident.cuh``, ``LAYER_SKIP``), its int8 modes (1 and 2)
+on ``csrc/decode_hbm.cuh``.  :func:`decode_reference` is its plain PyTorch
+version, with the same packs, rounding points, quantization and Philox
+draws.
 
 What it computes beyond :mod:`.wavenet_decode`:
 
 - **Per-layer skip accumulation**: ``skip_acc += z_i @ skip_i`` in float32,
   layer by layer, then ``h = relu(skip_acc)``, ``h2 = relu(h @ post1)``,
   ``logits = h2 @ post2``, rounded to the working dtype where the TPU
-  kernel's ``.astype(dtype)`` rounds.  The thread block holds only the
-  current layer's tap, so the scaled model (Cr = Cd = 64, Cs = 1024) fits
-  16 streams in a block's shared memory (:func:`smem_layout`,
+  kernel's ``.astype(dtype)`` rounds.  The thread block holds no ``z`` of
+  all layers, so the scaled model (Cr = Cd = 64, Cs = 1024) takes 4
+  streams a block in mode 0 and 16 in the int8 modes (:func:`smem_layout`,
   :func:`max_streams`).
 - **int8 weights** (``weight_dtype=torch.int8``): per-output-column
   symmetric scales ``max|w| / 127`` (1 for all-zero columns), quantized
@@ -30,12 +33,14 @@ What it computes beyond :mod:`.wavenet_decode`:
 Layout on the card: B1's (rings ``[B, sum(d), Cr]`` in device memory,
 tokens as indices, embeddings as row gathers), unpadded packs ``fg [L, 2Cr,
 2Cd]``, ``dense [L, Cd, Cr]``, ``skip [L, Cd, Cs]``, ``post1 [Cs, Cs]``,
-``post2 [Cs, Q]`` and, for int8, f32 ``<name>_scale`` rows.  Each layer
-reads its tap before it writes its input into the same slot, in one pass
-by the same thread, so the TPU kernel's d >= 3 guard for prefetched taps
-(``rings_in_hbm``) has no counterpart; nor have ``rings_in_hbm``,
-``batched_ring_dma``, ``serving_stream_width`` and the stream-group caps,
-which manage 16 MB of VMEM.
+``post2 [Cs, Q]`` and, for int8, f32 ``<name>_scale`` rows; in mode 0 also
+the chain packs ``fg_t``, ``dense_t`` (:func:`.wavenet_decode.chain_packs`),
+which the kernel stages in place of ``fg`` and ``dense``.  The TPU
+kernel's d >= 3 guard for prefetched taps (``rings_in_hbm``) has no
+counterpart (a layer's slot is written only by that layer, after its tap
+was read or staged); nor have ``rings_in_hbm``, ``batched_ring_dma``,
+``serving_stream_width`` and the stream-group caps, which manage 16 MB of
+VMEM.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ import torch
 
 from music_tpu_torch.kernels import _build, wavenet_decode
 from music_tpu_torch.kernels.wavenet_decode import (
-    SMEM_LIMIT, SUPPORTED_STREAMS, _check_supported, _pad4, _sample_scores, ring_offsets,
+    SMEM_LIMIT, SUPPORTED_STREAMS, _check_supported, _pad4, _sample_scores, chain_packs,
+    check_aligned, check_tile, ring_offsets,
 )
 from music_tpu_torch.models.wavenet import WaveNetConfig, _gate
 from music_tpu_torch.ops.conv import conv1x1, dilated_causal_conv, full_fp32, token_causal_conv
@@ -60,22 +66,43 @@ THREADS = 512
 """Threads per block (``kThreads`` in ``csrc/decode_common.cuh``)."""
 WEIGHT_KEYS = ("fg", "dense", "skip", "post1", "post2")
 """The packs that int8 mode quantizes (embeddings stay in the working dtype)."""
+LAYER_SKIP_STREAMS = (1, 2, 4)
+"""Streams per block mode 0 (the resident body with per-layer skip) is
+compiled for.  The scaled width's carve fits 4 f32 or 8 bf16 streams
+(:func:`max_streams`), but 8 bf16 streams a block ran slower on an H100
+than the resident kernel's 4 a block in two waves (PERF.md, section 6), so
+the tile is not compiled."""
+SPAN_PHASES = ("embedding and first stage", "layer wait and barrier", "layer copies issued",
+               "fg and gate", "dense and residual", "skip of the last layer", "post",
+               "sampling", "total")
+"""What each cycle count of a phase-timed launch sums (mode 0, as
+:data:`.wavenet_decode.SPAN_PHASES`): the layer phases are the chain
+warp's, so the other layers' skip shows as its wait at the barrier."""
 
 _INV127 = float(np.float32(1.0 / 127.0))  # the f32 of 1/127, as the TPU kernel's 1.0 / 127.0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int,
-                int8_matmul: bool = False) -> tuple[list[int], int]:
-    """The kernel's shared-memory carve for ``S`` streams per block:
-    ``(offsets, bytes)``, offsets in floats of ``tap, xq, z, acc, red_a,
-    red_b, ints`` (``x`` is at 0), as ``csrc/decode_hbm.cuh`` reads them.
+                dtype: torch.dtype = torch.float32, mode: int = 0,
+                ae: bool = False) -> tuple[list[int], int]:
+    """The kernel's shared-memory carve for ``S`` streams per block in
+    ``mode`` (0 weights in the working dtype ``dtype``, 1 int8 weights, 2
+    int8 products; ``ae`` for the autoencoder): ``(offsets, bytes)``.
 
-    Per stream: x, the tap, x's int8 codes (``int8_matmul``), z, skip_acc
-    ``[Cs]`` (then h, then h2) and two buffers of split partial sums (a
-    product of N columns keeps ``max(THREADS, N)`` of them per stream);
-    then ``cur, prev, frame`` per stream, ``dil, off`` per layer and two
-    row scales per stream."""
+    Mode 0 runs the resident body, whose carve is
+    :func:`.wavenet_decode.smem_layout` with ``layer_skip`` (its stages hold
+    ``dtype``, so it depends on it).  The int8 modes run
+    ``csrc/decode_hbm.cuh``: offsets in floats of ``tap, xq, z, acc, red_a,
+    red_b, ints`` (``x`` is at 0).  Per stream: x, the tap, x's int8 codes
+    (mode 2), z, skip_acc ``[Cs]`` (then h, then h2) and two buffers of
+    split partial sums (a product of N columns keeps ``max(THREADS, N)`` of
+    them per stream); then ``cur, prev, frame`` per stream, ``dil, off`` per
+    layer and two row scales per stream; activations in float32 whatever
+    the working dtype."""
+    if mode == 0:
+        return wavenet_decode.smem_layout(L, Cr, Cd, Cs, Q, S, dtype, ae, layer_skip=True)
+    int8_matmul = mode == 2
     sizes = [
         S * Cr,                                # x
         S * Cr,                                # tap
@@ -92,16 +119,24 @@ def smem_layout(L: int, Cr: int, Cd: int, Cs: int, Q: int, S: int,
     return offsets[1:] + [o], 4 * (o + 3 * S + 2 * L + 2 * S)
 
 
-def max_streams(cfg: WaveNetConfig, int8_matmul: bool = False) -> int:
-    """The most streams per block (of :data:`SUPPORTED_STREAMS`) whose
-    carve fits :data:`SMEM_LIMIT`; 0 when none does.  Activations live in
-    shared memory in float32 whatever the working dtype, so the carve does
-    not depend on it."""
+def mode_of(weight_dtype: torch.dtype | None, int8_matmul: bool = False) -> int:
+    """The kernel's mode: 0 weights in the working dtype, 1 int8 weights, 2
+    int8 products."""
+    return 2 if int8_matmul else int(weight_dtype == torch.int8)
+
+
+def streams_of(mode: int) -> tuple[int, ...]:
+    """The tiles the kernel is compiled for in ``mode``."""
+    return SUPPORTED_STREAMS if mode else LAYER_SKIP_STREAMS
+
+
+def max_streams(cfg: WaveNetConfig, dtype: torch.dtype = torch.float32, mode: int = 0) -> int:
+    """The most streams per block (of :func:`streams_of` ``mode``) whose
+    carve (:func:`smem_layout`) fits :data:`SMEM_LIMIT`; 0 when none does."""
     dims = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
             cfg.quantization_channels)
-    fits = [s for s in SUPPORTED_STREAMS
-            if smem_layout(*dims, s, int8_matmul)[1] <= SMEM_LIMIT]
-    return max(fits, default=0)
+    return max((s for s in streams_of(mode)
+                if smem_layout(*dims, s, dtype, mode)[1] <= SMEM_LIMIT), default=0)
 
 
 def _quantize_cols(w: torch.Tensor, dim: int):
@@ -136,6 +171,15 @@ def pack_weights(w32: dict, dtype: torch.dtype, weight_dtype: torch.dtype | None
         out[k] = q.contiguous()
         out[f"{k}_scale"] = scale.squeeze(-2).contiguous()
     return out
+
+
+def with_chain_packs(w: dict) -> dict:
+    """``w`` with, for weights in the working dtype, the chain packs
+    ``fg_t``, ``dense_t`` (:func:`.wavenet_decode.chain_packs`) that the
+    kernel stages in mode 0; the plain version reads ``fg`` and ``dense``."""
+    if w["fg"].dtype != torch.int8:
+        w["fg_t"], w["dense_t"] = chain_packs(w["fg"], w["dense"])
+    return w
 
 
 def dequantize(w: dict) -> dict:
@@ -216,15 +260,17 @@ def prepare(
 ):
     """Pad the prime rows to ``n_streams * n_stream_groups`` and build the
     kernel inputs ``(weights, ring, s0, prev0)``; the prime state is
-    :mod:`.wavenet_decode`'s.  With ``int8_matmul`` the dense and skip
-    scales carry the 1/127 of z's codes, and static ``act_scales`` fold
-    into the fg scales (``act_inv`` holds their f32 inverses)."""
+    :mod:`.wavenet_decode`'s.  In the working dtype the weights also hold
+    the chain packs ``fg_t``, ``dense_t`` that mode 0 stages.  With
+    ``int8_matmul`` the dense and skip scales carry the 1/127 of z's codes,
+    and static ``act_scales`` fold into the fg scales (``act_inv`` holds
+    their f32 inverses)."""
     _check_modes(cfg, weight_dtype, int8_matmul, act_scales)
     _, ring, s0, prev0 = wavenet_decode.prepare(
         params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
         dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed,
     )
-    w = _build_hbm_weights(params, cfg, dtype, weight_dtype)
+    w = with_chain_packs(_build_hbm_weights(params, cfg, dtype, weight_dtype))
     if int8_matmul:
         w["dense_scale"] = w["dense_scale"] * _INV127
         w["skip_scale"] = w["skip_scale"] * _INV127
@@ -346,9 +392,11 @@ def decode_reference(
 
 
 POINTERS = ("dil", "ring", "s0", "prev0", "pos0", "ecur", "eprev", *WEIGHT_KEYS,
-            *(f"{k}_scale" for k in WEIGHT_KEYS), "act_inv", "cond_fg", "cond_post", "out")
+            *(f"{k}_scale" for k in WEIGHT_KEYS), "act_inv", "cond_fg", "cond_post", "out",
+            "spans")
 """The device pointers both weight-streaming kernels take, in the order of
-``HbmPtr`` in ``csrc/decode_hbm.cuh`` (null where a kernel takes none)."""
+``HbmPtr`` in ``csrc/decode_hbm.cuh`` (null where a kernel takes none; in
+mode 0, ``fg`` and ``dense`` point at the chain packs)."""
 
 ARGTYPES = (
     [ctypes.c_int] * 4          # dtype, mode, S, G
@@ -371,29 +419,35 @@ def _library() -> ctypes.CDLL:
 
 
 def check_kernel_inputs(w: dict, ring, tokens: dict, dims: tuple, n_streams: int,
-                        dtype: torch.dtype, int8_matmul: bool, extra: dict | None = None):
-    """The checks both weight-streaming wrappers make before a launch:
-    device, dtype, shape and contiguity of every input, and a tile the
-    carve fits.  ``dims = (L, Cr, Cd, Cs, Q, ring_len)``; ``tokens``: the
-    int32 ``[B]`` vectors; ``extra``: other ``name: (tensor, shape)`` in
-    ``dtype``.  Returns ``(mode, carve offsets, carve bytes)``."""
+                        dtype: torch.dtype, int8_matmul: bool, extra: dict | None = None,
+                        ae: bool = False):
+    """The checks both weight-streaming wrappers make before a launch: a
+    tile the carve of the mode fits, then device, dtype, shape and
+    contiguity of every input, and in mode 0 16-byte alignment.  ``dims =
+    (L, Cr, Cd, Cs, Q, ring_len)``; ``tokens``: the int32 ``[B]`` vectors;
+    ``extra``: other ``name: (tensor, shape)`` in ``dtype``; ``ae`` for the
+    autoencoder's carve.  Returns ``(mode, carve offsets, carve bytes)``."""
     L, Cr, Cd, Cs, Q, ring_len = dims
     B = ring.shape[0]
-    if n_streams not in SUPPORTED_STREAMS or B % n_streams:
+    quant = w["fg"].dtype == torch.int8
+    if int8_matmul and not quant:
+        raise ValueError("int8_matmul requires int8 weights")
+    mode = mode_of(torch.int8 if quant else None, int8_matmul)
+    if n_streams not in streams_of(mode) or B % n_streams:
         raise ValueError(f"{B} rows do not split into blocks of n_streams={n_streams} "
-                         f"(supported: {SUPPORTED_STREAMS})")
-    offsets, nbytes = smem_layout(L, Cr, Cd, Cs, Q, n_streams, int8_matmul)
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{n_streams} streams per block need {nbytes} bytes of shared memory "
-                         f"(limit {SMEM_LIMIT}); take at most max_streams()")
+                         f"(mode {mode} takes {streams_of(mode)}); take at most max_streams()")
+    if mode == 0:
+        offsets, nbytes = check_tile(dims[:5], n_streams, dtype, ae, layer_skip=True)
+    else:
+        offsets, nbytes = smem_layout(*dims[:5], n_streams, dtype, mode)
+        if nbytes > SMEM_LIMIT:
+            raise ValueError(f"{n_streams} streams per block need {nbytes} bytes of shared "
+                             f"memory (limit {SMEM_LIMIT}); take at most max_streams()")
     device = ring.device
     if device.type != "cuda":
         raise ValueError(f"decode_cuda needs CUDA tensors, got {device}")
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype}")
-    quant = w["fg"].dtype == torch.int8
-    if int8_matmul and not quant:
-        raise ValueError("int8_matmul requires int8 weights")
     wdt = torch.int8 if quant else dtype
     shapes = {"ecur": ((Q, Cr), dtype), "eprev": ((Q, Cr), dtype),
               "fg": ((L, 2 * Cr, 2 * Cd), wdt), "dense": ((L, Cd, Cr), wdt),
@@ -404,6 +458,10 @@ def check_kernel_inputs(w: dict, ring, tokens: dict, dims: tuple, n_streams: int
                        "skip_scale": ((L, Cs), torch.float32),
                        "post1_scale": ((Cs,), torch.float32),
                        "post2_scale": ((Q,), torch.float32)})
+    else:
+        pad = 16 // torch.tensor([], dtype=dtype).element_size()
+        shapes.update({"fg_t": ((L, 2 * Cd, 2 * Cr + pad), dtype),
+                       "dense_t": ((L, Cr, Cd + pad), dtype)})
     if "act_inv" in w:
         if not int8_matmul:
             raise ValueError("act_inv (static act_scales) requires int8_matmul")
@@ -416,8 +474,9 @@ def check_kernel_inputs(w: dict, ring, tokens: dict, dims: tuple, n_streams: int
         if t.device != device or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: need contiguous {dt} {shape} on {device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    mode = 2 if int8_matmul else int(quant)
-    return mode, (ctypes.c_int * 7)(*offsets), nbytes
+    if mode == 0:  # the resident body's 16-byte copies and loads
+        check_aligned({name: t for name, (t, _, _) in checks.items() if name not in tokens})
+    return mode, (ctypes.c_int * len(offsets))(*offsets), nbytes
 
 
 def launch(entry, dtype: torch.dtype, mode: int, n_streams: int, dims: tuple, offsets,
@@ -428,6 +487,8 @@ def launch(entry, dtype: torch.dtype, mode: int, n_streams: int, dims: tuple, of
     ``tensors`` the checked inputs by :data:`POINTERS` name (those missing
     pass null).  Returns the entry point's CUDA error code."""
     ring = tensors["ring"]
+    if mode == 0:  # the resident body stages the chain packs
+        tensors = {**tensors, "fg": tensors["fg_t"], "dense": tensors["dense_t"]}
     ptrs = (ctypes.c_void_p * len(POINTERS))(
         *(tensors[k].data_ptr() if k in tensors else None for k in POINTERS))
     with torch.cuda.device(ring.device):
@@ -444,12 +505,15 @@ def decode_cuda(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, n_streams: int, dtype: torch.dtype = torch.float32,
     int8_matmul: bool = False, sample_mode: str = "argmax", temperature: float = 1.0,
-    seed: int = 0,
+    seed: int = 0, spans: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (same arguments and
     result as :func:`decode_reference`).  Raises on anything it does not
     take, a tile larger than :func:`max_streams` included, and when the
-    launch is refused."""
+    launch is refused.  ``spans``, an int64 CUDA tensor with one entry per
+    :data:`SPAN_PHASES`, runs the phase-timed build instead (mode 0,
+    float32, one stream a block), which writes block 0's cycle counts per
+    phase into it."""
     global LAUNCHES
     _check_supported(cfg)
     if sample_mode not in ("argmax", "categorical"):
@@ -464,14 +528,21 @@ def decode_cuda(
         w, ring, {"s0": s0, "prev0": prev0}, (L, Cr, Cd, Cs, Q, ring_len), n_streams, dtype,
         int8_matmul)
     device = ring.device
+    if spans is not None and (spans.device != device or spans.dtype != torch.int64
+                              or tuple(spans.shape) != (len(SPAN_PHASES),) or mode != 0
+                              or dtype != torch.float32 or n_streams != 1):
+        raise ValueError(f"spans: need int64 [{len(SPAN_PHASES)}] on the decode's device, "
+                         "weights and activations in float32, n_streams=1")
     ring = ring.to(dtype=dtype, copy=True).contiguous()  # the kernel updates it in place
     dil = torch.tensor(cfg.dilations, dtype=torch.int32, device=device)
     out = torch.empty((ring.shape[0], n_steps), dtype=torch.int32, device=device)
+    tensors = {**w, "dil": dil, "ring": ring, "s0": s0, "prev0": prev0, "out": out}
+    if spans is not None:
+        tensors["spans"] = spans
     lib = _library()
     rc = launch(lib.wavenet_decode_hbm, dtype, mode, n_streams, (L, Cr, Cd, Cs, Q, ring_len, 1, 1),
-                offsets, nbytes,
-                {**w, "dil": dil, "ring": ring, "s0": s0, "prev0": prev0, "out": out}, n_steps,
-                {"argmax": 0, "categorical": 1}[sample_mode], temperature, seed)
+                offsets, nbytes, tensors, n_steps, {"argmax": 0, "categorical": 1}[sample_mode],
+                temperature, seed)
     if rc != 0:
         raise RuntimeError(
             f"wavenet_decode_hbm launch failed: {lib.wavenet_decode_hbm_error(rc).decode()}")

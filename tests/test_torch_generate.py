@@ -178,26 +178,84 @@ def test_cli_subprocess_imports_no_jax(tmp_path):
 WIDE_JSON = dict(TINY_JSON, dilations=[1, 2] * 9, residual_channels=16)
 
 
+def _card(monkeypatch, sms=132):
+    """A CUDA device of ``sms`` SMs as far as stream_tiling asks."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=sms))
+    return torch.device("cuda")
+
+
 @pytest.mark.parametrize("widths,streaming", [
     ({}, False), (dict(residual_channels=64, dilation_channels=64, skip_channels=1024), True)])
-def test_routing_rule_shipped_and_scaled(widths, streaming):
-    """The shipped model (5.08 MB of f32 weights) stays on the resident
-    kernel; the 4.4x-scaled one (19.1 MB) goes to the weight-streaming
-    kernel."""
+def test_routing_rule_shipped_and_scaled(monkeypatch, widths, streaming):
+    """The rule as measured on the card (PERF.md, section 6): the resident
+    kernel while its carve holds the tile with its helper warp (3 stages),
+    else the weight-streaming kernel if its carve holds more.  The shipped
+    model (5.08 MB of f32 weights) stays resident at every count; the
+    4.4x-scaled one (19.1 MB) goes to the weight-streaming kernel in f32 at
+    every count (the resident carve has 2 stages even for one stream) and
+    stays resident in bf16 (4 streams a block with 3 or more stages, the
+    weight-streaming kernel's most)."""
     from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
 
     shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet")["wavenet_params"]
     cfg = twn.WaveNetConfig.from_json({**shipped, **widths})
     nbytes = 4 * sum(int(np.prod(s)) for s in twn.param_shapes(cfg).values())
     assert nbytes == (19_136_512 if streaming else 5_079_040)
-    assert tgen.streams_weights(nbytes) is streaming
+    cuda = _card(monkeypatch)
+    for dtype in (torch.float32, torch.bfloat16):
+        caps = (wavenet_decode.max_streams(cfg, dtype, min_stages=tgen.HELPER_STAGES),
+                wavenet_decode_hbm.max_streams(cfg, dtype))
+        if streaming:
+            assert caps == ((0, 4) if dtype == torch.float32 else (4, 4))
+        want = streaming and dtype == torch.float32
+        for device, counts in ((cuda, (1, 32, 264, 265, 529, 3000)), (torch.device("cpu"), (1,))):
+            for n in counts:
+                got = tgen.streams_weights(n, device, wavenet_decode, wavenet_decode_hbm, cfg,
+                                           dtype)
+                assert got is want, (dtype, device, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths,streaming", [
+    ({}, False), (dict(residual_channels=64, dilation_channels=64, skip_channels=1024), True)])
+def test_fused_decode_routes_and_tiles_by_the_chosen_kernel(monkeypatch, widths, streaming,
+                                                             dtype):
+    """The generate path on a 132-SM card, 32 and 600 streams: the scaled
+    model in f32 on the weight-streaming kernel, tiled by its max_streams
+    (1 and 4 a block); the scaled model in bf16 and the shipped one on the
+    resident kernel, tiled by its own (scaled bf16: 1 and 4; shipped: 1
+    and 8)."""
+    from types import SimpleNamespace
+
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
+
+    shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet")["wavenet_params"]
+    cfg = twn.WaveNetConfig.from_json({**shipped, **widths})
+    params = {k: torch.empty(shape, device="meta") for k, shape in twn.param_shapes(cfg).items()}
+    cuda = _card(monkeypatch)
+    seen = []
+    monkeypatch.setattr(wavenet_decode, "generate_tokens_fused",
+                        lambda *a, **k: seen.append(("resident", k["n_streams"])))
+    monkeypatch.setattr(wavenet_decode_hbm, "generate_tokens_fused_hbm",
+                        lambda *a, **k: seen.append(("streaming", k["n_streams"])))
+    for n in (32, 600):
+        prime = SimpleNamespace(shape=(n, 5), device=cuda)
+        tgen._fused_decode(params, prime, cfg, 4, dtype, "argmax", 1.0, 0)
+    kernel = "streaming" if streaming and dtype == torch.float32 else "resident"
+    assert seen == [(kernel, 1), (kernel, 4 if streaming else 8)]
 
 
 def test_generate_on_streaming_kernel_matches_jax_generate(tmp_path, monkeypatch):
-    """With the threshold at 0 the port's generate() on the wide config
-    decodes through the weight-streaming kernel's wrapper (and not the
-    resident one's), as JAX's generate() takes its HBM kernel on this
-    config: tie-aware at 1e-5 on the JAX model; exact equality printed."""
+    """With a resident carve that holds no stream the port's generate() on
+    the wide config decodes through the weight-streaming kernel's wrapper
+    (and not the resident one's), as JAX's generate() takes its HBM kernel
+    on this config: tie-aware at 1e-5 on the JAX model; exact equality
+    printed."""
     from music_tpu.generate import wavenet_generate as jgen
     from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
 
@@ -206,7 +264,7 @@ def test_generate_on_streaming_kernel_matches_jax_generate(tmp_path, monkeypatch
     tp = twn.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, cfg=tcfg)
     calls = []
     streaming = wavenet_decode_hbm.generate_tokens_fused_hbm
-    monkeypatch.setattr(tgen, "STREAMING_MIN_BYTES", 0)
+    monkeypatch.setattr(wavenet_decode, "max_streams", lambda *a, **k: 0)
     monkeypatch.setattr(wavenet_decode_hbm, "generate_tokens_fused_hbm",
                         lambda *a, **k: calls.append(k["n_streams"]) or streaming(*a, **k))
     monkeypatch.setattr(wavenet_decode, "generate_tokens_fused",

@@ -181,12 +181,15 @@ def test_int8_vs_jax_and_dequantized_step_loop():
 
 
 def test_max_streams_refusals_and_no_launch_on_cpu():
-    """The scaled decoder takes 16 streams a block; a tile the carve does
-    not fit, CPU tensors and a bad weight dtype are refused before any
-    launch; the CPU path launches nothing."""
+    """The scaled decoder takes 4 streams a block in the working dtype (the
+    resident carve with per-layer skip and the conditioning rows in its
+    stages) and 16 with int8 weights; a tile the carve does not fit, CPU
+    tensors and a bad weight dtype are refused before any launch; the CPU
+    path launches nothing."""
     scaled = tae.WaveNetAEConfig(de_residual_channel=64, de_dilation_channel=64,
                                  de_skip_channel=1024)
-    assert th.max_streams(scaled) == 16
+    assert th.max_streams(scaled) == th.max_streams(scaled, torch.bfloat16) == 4
+    assert th.max_streams(scaled, mode=1) == 16
     big = tae.WaveNetAEConfig.from_json({**TINY_JSON, "de_skip_channel": 4096})
     assert th.max_streams(big) == 4
     tp = tae.init_params(big, torch.Generator().manual_seed(0))
@@ -203,3 +206,44 @@ def test_max_streams_refusals_and_no_launch_on_cpu():
         th.prepare(tp, torch.from_numpy(enc), torch.from_numpy(prime), cfg=big, n_streams=8,
                    weight_dtype=torch.float16)
     assert th.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,fits8", [(torch.float32, False), (torch.bfloat16, True)])
+def test_mode0_carve_holds_the_conditioning_rows(dtype, fits8):
+    """At the scaled decoder width the working-dtype carve is the resident
+    AE carve with per-layer skip: 16-byte aligned offsets, every stream's
+    conditioning row in each stage (a stage larger than WaveNet's by 2Cd a
+    stream), 4 streams a block, and 8 not compiled whether or not its carve
+    would fit."""
+    want = 4
+    from music_tpu_torch.kernels import wavenet_decode as tdec
+    from music_tpu_torch.kernels import wavenet_decode_hbm as tw
+
+    cfg = tae.WaveNetAEConfig(de_residual_channel=64, de_dilation_channel=64,
+                              de_skip_channel=1024)
+    dims = (cfg.n_blocks, 64, 64, 1024, cfg.quantization_channel)
+    assert th.max_streams(cfg, dtype) == want
+    offsets, nbytes = th.smem_layout(*dims, want, dtype, 0, ae=True)
+    assert nbytes <= th.SMEM_LIMIT and all(o % 4 == 0 for i, o in enumerate(offsets) if i != 6)
+    assert (offsets, nbytes) == tdec.smem_layout(*dims, want, dtype, ae=True, layer_skip=True)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    assert offsets[5] - th.smem_layout(*dims, want, dtype, 0)[0][5] == want * 2 * 64 * esize // 4
+    assert 2 * want not in tw.LAYER_SKIP_STREAMS
+    assert (th.smem_layout(*dims, 2 * want, dtype, 0, ae=True)[1] <= th.SMEM_LIMIT) is fits8
+
+
+def test_prepare_chain_packs():
+    """prepare in the working dtype adds the chain packs (fg and dense
+    transposed, padded by 16 bytes) for the kernel; the plain version reads
+    the untransposed packs, so its tokens do not change."""
+    _, tp = _params(12)
+    prime, enc = _inputs(12, 3, 6)
+    w, *state = th.prepare(tp, torch.from_numpy(enc), torch.from_numpy(prime), cfg=TTINY,
+                           n_streams=4)
+    L, Cr, Cd = TTINY.n_blocks, TTINY.de_residual_channel, TTINY.de_dilation_channel
+    assert torch.equal(w["fg_t"][..., :2 * Cr], w["fg"].transpose(1, 2))
+    assert torch.equal(w["dense_t"][..., :Cd], w["dense"].transpose(1, 2))
+    assert w["fg_t"].shape == (L, 2 * Cd, 2 * Cr + 4) and w["dense_t"].shape == (L, Cr, Cd + 4)
+    plain = {k: v for k, v in w.items() if k not in ("fg_t", "dense_t")}
+    assert torch.equal(th.decode_reference(w, *state, cfg=TTINY, n_steps=6),
+                       th.decode_reference(plain, *state, cfg=TTINY, n_steps=6))

@@ -212,24 +212,76 @@ def test_cli_file_and_directory_subprocess(tmp_path):
 @pytest.mark.parametrize("widths,streaming", [
     ({}, False), (dict(de_residual_channel=64, de_dilation_channel=64, de_skip_channel=1024),
                   True)])
-def test_routing_rule_shipped_and_scaled_decoder(widths, streaming):
-    """The rule counts the decoder parameters that enter the kernel: the
-    shipped AE decoder (5.08 MB in f32) stays on the resident kernel, the
-    scaled one (19.1 MB) goes to the weight-streaming kernel."""
+def test_routing_rule_shipped_and_scaled_decoder(monkeypatch, widths, streaming):
+    """The rule as measured on the card (PERF.md, section 6): the resident
+    kernel while its carve holds the tile with its helper warp.  The
+    shipped AE decoder (5.08 MB of kernel weights in f32) stays resident at
+    every count; the scaled one (19.1 MB), whose resident carve has 2
+    stages even for one clip in f32, goes to the weight-streaming kernel at
+    every count."""
+    from types import SimpleNamespace
+
     from music_tpu_torch.core.config import load_params_dir
-    from music_tpu_torch.generate.wavenet_generate import streams_weights
-    from music_tpu_torch.kernels.wavenet_ae_decode_hbm import DECODER_KEYS
+    from music_tpu_torch.generate.wavenet_generate import HELPER_STAGES, streams_weights
+    from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_ae_decode_hbm
 
     shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet_autoencoder")
     cfg = tae.WaveNetAEConfig.from_json({**shipped["model_params"], **widths})
     shapes = tae.param_shapes(cfg)
-    nbytes = 4 * sum(int(np.prod(shapes[k])) for k in DECODER_KEYS)
+    nbytes = 4 * sum(int(np.prod(shapes[k])) for k in wavenet_ae_decode_hbm.DECODER_KEYS)
     assert nbytes == (19_136_512 if streaming else 5_079_040)
-    assert streams_weights(nbytes) is streaming
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    cuda = torch.device("cuda")
+    caps = (wavenet_ae_decode.max_streams(cfg, min_stages=HELPER_STAGES),
+            wavenet_ae_decode_hbm.max_streams(cfg))
+    assert caps == (0, 4) if streaming else caps[0] == 8
+    for n in (1, 32, 264, 265, 3000):
+        got = streams_weights(n, cuda, wavenet_ae_decode, wavenet_ae_decode_hbm, cfg,
+                              torch.float32)
+        assert got is streaming, n
+
+
+@pytest.mark.parametrize("widths,streaming", [
+    ({}, False), (dict(de_residual_channel=64, de_dilation_channel=64, de_skip_channel=1024),
+                  True)])
+def test_decode_routes_and_tiles_by_the_chosen_kernel(monkeypatch, widths, streaming):
+    """The reconstruct path on a 132-SM card, 32 and 300 clips: the scaled
+    decoder on the weight-streaming kernel, tiled by its max_streams (1 and
+    4 a block), the shipped one on the resident kernel (1 and 4 a block)."""
+    from types import SimpleNamespace
+
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_ae_decode_hbm
+
+    shipped = load_params_dir(REPO / "music_tpu_torch" / "params" / "wavenet_autoencoder")
+    cfg = tae.WaveNetAEConfig.from_json({**shipped["model_params"], **widths})
+    params = {k: torch.empty(shape, device="meta") for k, shape in tae.param_shapes(cfg).items()}
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    seen = []
+    monkeypatch.setattr(wavenet_ae_decode, "generate_tokens_fused",
+                        lambda *a, **k: seen.append(("resident", k["n_streams"])))
+    monkeypatch.setattr(wavenet_ae_decode_hbm, "generate_tokens_fused_hbm",
+                        lambda *a, **k: seen.append(("streaming", k["n_streams"])))
+    prime_len = cfg.receptive_field + max(cfg.dilations)
+
+    class Codes:  # what _decode reads of the source codes on a card
+        def __init__(self, n):
+            self.shape, self.device = (n, prime_len), torch.device("cuda")
+
+        def __getitem__(self, index):
+            return self
+
+    for n in (32, 300):
+        tgen._decode(params, None, Codes(n), cfg, 4, backend="fused", sample_mode="argmax",
+                     seed=0, dtype=torch.float32)
+    kernel = "streaming" if streaming else "resident"
+    assert seen == [(kernel, 1), (kernel, 4)]
 
 
 def test_generate_batch_on_streaming_kernel_matches_jax(monkeypatch):
-    """With the threshold at 0, generate_batch decodes through the
+    """With a resident carve that holds no stream, generate_batch decodes through the
     weight-streaming kernel's wrapper (and not the resident one's):
     tie-aware at 1e-5 on the plain f32 decoder; exact equality with the
     JAX weight-streaming kernel (interpret mode) printed."""
@@ -241,7 +293,7 @@ def test_generate_batch_on_streaming_kernel_matches_jax(monkeypatch):
     src = _clips(6, 3, 100)
     calls = []
     streaming = wavenet_ae_decode_hbm.generate_tokens_fused_hbm
-    monkeypatch.setattr(wavenet_generate, "STREAMING_MIN_BYTES", 0)
+    monkeypatch.setattr(wavenet_ae_decode, "max_streams", lambda *a, **k: 0)
     monkeypatch.setattr(wavenet_ae_decode_hbm, "generate_tokens_fused_hbm",
                         lambda *a, **k: calls.append(k["n_streams"]) or streaming(*a, **k))
     monkeypatch.setattr(wavenet_ae_decode, "generate_tokens_fused",

@@ -257,12 +257,14 @@ def test_c1_model_tiles_by_its_carve(monkeypatch):
     from types import SimpleNamespace
 
     from music_tpu_torch.generate import wavenet_generate as wg
+    from music_tpu_torch.kernels import wavenet_decode_hbm as thbm
 
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: SimpleNamespace(multi_processor_count=132))
     cuda = torch.device("cuda")
     dims = (40, 32, 32, 1024, 256)
-    assert not wg.streams_weights(11_370_496)  # the model's f32 bytes: B1's route
+    # B1's route: the weight-streaming carve holds no more streams a block
+    assert not wg.streams_weights(1100, cuda, tdec, thbm, C1_MODEL, torch.float32)
     S, G = wg.stream_tiling(1100, cuda)
     assert tdec.smem_layout(*dims, S, torch.float32)[1] > tdec.SMEM_LIMIT
     S, G = wg.stream_tiling(1100, cuda, tdec.max_streams(C1_MODEL, torch.float32))

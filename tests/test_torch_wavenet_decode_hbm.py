@@ -258,11 +258,14 @@ def test_use_bias_raises():
 
 
 def test_max_streams_and_oversized_tile_raises():
-    """The scaled model takes 16 streams a block in every mode; a tile the
-    carve does not fit is refused by the wrapper before any launch, and
-    the CPU path launches nothing."""
+    """The scaled model takes 4 streams a block in the working dtype (the
+    resident carve with per-layer skip, whose 8-stream tile is not
+    compiled) and 16 in the int8 modes; a tile the carve does not fit is
+    refused by the wrapper before any launch, and the CPU path launches
+    nothing."""
     scaled = twn.WaveNetConfig(dilation_channels=64, residual_channels=64, skip_channels=1024)
-    assert th.max_streams(scaled) == th.max_streams(scaled, int8_matmul=True) == 16
+    assert th.max_streams(scaled) == th.max_streams(scaled, torch.bfloat16) == 4
+    assert th.max_streams(scaled, mode=1) == th.max_streams(scaled, mode=2) == 16
     big = twn.WaveNetConfig.from_json({**TINY_JSON, "skip_channels": 4096})
     assert th.max_streams(big) == 4
     tp = twn.init_params(big, torch.Generator().manual_seed(0))
@@ -276,3 +279,78 @@ def test_max_streams_and_oversized_tile_raises():
     with pytest.raises(ValueError, match="CUDA"):
         th.decode_cuda(*inputs, cfg=big, n_steps=3, n_streams=4)
     assert th.LAUNCHES == before
+
+
+# the widths of the tiny config, the shipped model and the 4.4x-scaled one
+WIDTHS = {"tiny": CFGS["tiny"][1], "shipped": twn.WaveNetConfig(),
+          "scaled": twn.WaveNetConfig(dilation_channels=64, residual_channels=64,
+                                      skip_channels=1024)}
+
+
+@pytest.mark.parametrize("name,dtype,want,fits8", [
+    ("tiny", torch.float32, 4, True), ("tiny", torch.bfloat16, 4, True),
+    ("shipped", torch.float32, 4, True), ("shipped", torch.bfloat16, 4, True),
+    ("scaled", torch.float32, 4, False), ("scaled", torch.bfloat16, 4, True),
+])
+def test_mode0_carve(name, dtype, want, fits8):
+    """The working-dtype mode's carve (the resident body's, with two layers'
+    z and skip_acc in place of z of all layers): max_streams by dtype, every
+    offset 16-byte aligned, 2 to MAX_STAGES stages, and the next tile up
+    not compiled (LAYER_SKIP_STREAMS stops at 4), whether or not its carve
+    would fit (at the scaled width 8 f32 streams would not)."""
+    from music_tpu_torch.kernels import wavenet_decode as tdec
+
+    cfg = WIDTHS[name]
+    dims = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
+            cfg.quantization_channels)
+    assert th.max_streams(cfg, dtype) == want
+    offsets, nbytes = th.smem_layout(*dims, want, dtype)
+    assert nbytes <= th.SMEM_LIMIT and 2 <= offsets[6] <= tdec.MAX_STAGES
+    assert all(o % 4 == 0 for i, o in enumerate(offsets) if i != 6)  # floats: 16 bytes
+    # two layers of z, not L: the carve is the resident one's with layer_skip
+    assert offsets[1] - offsets[0] == 4 * ((2 * want * cfg.dilation_channels + 3) // 4)
+    assert (offsets, nbytes) == tdec.smem_layout(*dims, want, dtype, layer_skip=True)
+    assert 2 * want not in th.streams_of(0)
+    assert (th.smem_layout(*dims, 2 * want, dtype)[1] <= th.SMEM_LIMIT) is fits8
+
+
+@pytest.mark.parametrize("dtype,n_streams", [(torch.float32, 8), (torch.bfloat16, 8)])
+def test_mode0_tile_past_max_streams_refused(dtype, n_streams):
+    """At the scaled width a tile past max_streams in the working dtype (8
+    streams a block: not compiled) is refused on the CPU before any launch,
+    with or without a card."""
+    cfg = WIDTHS["scaled"]
+    L, Cr, Cd, Cs, Q = (cfg.n_blocks, cfg.residual_channels, cfg.dilation_channels,
+                        cfg.skip_channels, cfg.quantization_channels)
+    w = {"fg": torch.zeros(1, dtype=dtype)}
+    ring = torch.zeros((n_streams, 1, Cr), dtype=dtype)
+    tok = torch.zeros(n_streams, dtype=torch.int32)
+    before = th.LAUNCHES
+    with pytest.raises(ValueError, match="max_streams"):
+        th.decode_cuda(w, ring, tok, tok, cfg=cfg, n_steps=3, n_streams=n_streams, dtype=dtype)
+    assert th.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prepare_chain_packs(dtype):
+    """In the working dtype prepare also returns the chain packs the kernel
+    stages: fg and dense transposed to one row per output column and padded
+    by 16 bytes; the int8 modes have none.  The plain version reads the
+    untransposed packs, so its tokens do not change."""
+    _, tcfg = CFGS["wide"]
+    _, tp = _params("wide", 3)
+    prime = torch.from_numpy(_prime("wide", 2, 3))
+    w, ring, s0, prev0 = th.prepare(tp, prime, cfg=tcfg, n_streams=2, dtype=dtype)
+    pad = 16 // w["fg"].element_size()
+    L, Cr, Cd = tcfg.n_blocks, tcfg.residual_channels, tcfg.dilation_channels
+    assert w["fg_t"].shape == (L, 2 * Cd, 2 * Cr + pad) and w["fg_t"].dtype == dtype
+    assert w["dense_t"].shape == (L, Cr, Cd + pad) and w["dense_t"].is_contiguous()
+    assert torch.equal(w["fg_t"][..., :2 * Cr], w["fg"].transpose(1, 2))
+    assert torch.equal(w["dense_t"][..., :Cd], w["dense"].transpose(1, 2))
+    assert not w["fg_t"][..., 2 * Cr:].any() and not w["dense_t"][..., Cd:].any()
+    plain = {k: v for k, v in w.items() if k not in ("fg_t", "dense_t")}
+    kw = dict(cfg=tcfg, n_steps=6, dtype=dtype)
+    assert torch.equal(th.decode_reference(w, ring, s0, prev0, **kw),
+                       th.decode_reference(plain, ring, s0, prev0, **kw))
+    wq, *_ = th.prepare(tp, prime, cfg=tcfg, n_streams=2, weight_dtype=torch.int8)
+    assert "fg_t" not in wq and "dense_t" not in wq
