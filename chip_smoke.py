@@ -51,8 +51,8 @@ int8 modes the weight-streaming body:
    bf16, int8 products with dynamic and static activation scales): exact
    token matches, a tie-aware check against the f32 model (on
    ``dequantized_params`` for int8 weights); then the tiny model trained
-   on the card, where int8 products must agree with the f32 model on >=
-   99% of the tokens;
+   on the card by the port's trainer step (Adam), where int8 products must
+   agree with the f32 model on >= 99% of the tokens;
 10. WaveNet at the scaled width, 0.25 s each: through the CLI with
     ``--params-dir`` one f32 stream, which the routing rule gives the
     weight-streaming kernel (the resident carve has no room for its helper
@@ -91,8 +91,28 @@ int8 modes the weight-streaming body:
 
 15. one thread block's L2 read rate (``csrc/l2_probe.cu``) at the bytes a
     block of each timed case moves a step, and each case's one-SM floor;
-16. a JSON line describing each kernel (times in ms per decode step, with
-    the least time the card could take for the same step, ``bound_ms``),
+
+Train, checkpoint and serve, at the shipped widths:
+
+16. a dataset of seeded sine mixtures through ``dataset build-audio``;
+    ``wavenet train`` for two epochs of the shipped dataset params (window
+    40000, batch 4), resumed for a third; the trainer's step timed in f32
+    and with ``compute_dtype`` bf16 (ms a step, pieces/s); ``wavenet-ae
+    train`` for one epoch;
+17. ``wavenet generate`` on the trained checkpoint (one f32 stream, B1),
+    tie-aware against the plain model over 512 steps, and the share of
+    steps whose top-2 logit margin exceeds 1e-3;
+18. ``DecodeSession`` on the trained model: 32 bf16 categorical streams at
+    4096 steps a call with streams joining and finishing (one launch a
+    call; the last call split into prime and packs, kernel and the rest),
+    and f32 argmax streams joining and leaving over three calls, tie-aware
+    against the plain model as is an uninterrupted decode of each;
+    ``AEDecodeSession`` on the trained autoencoder with the 32 clips of
+    phase 7 (4 joining a call late), tie-aware on each stream's absolute
+    clock, with the call's split and its conditioning-table build;
+19. a JSON line describing each kernel (times in ms per decode step, with
+    the least time the card could take for the same step, ``bound_ms``;
+    launches counted over the main-path phases 4, 7, 10, 13, 17 and 18),
     then the device JSON as the last line.
 
 It imports nothing of JAX.  Float32 matmuls in the plain versions run in
@@ -127,6 +147,8 @@ TOL_AE_BF16 = 8e-3
 TIMED_STEPS, PLAIN_STEPS = 2048, 64  # the plain versions are no yardstick of speed
 PROBE_REPS = 10  # passes over the array in the timed launch of the L2 probe
 PLAIN_STEPS_SCALED = 128  # the plain versions take 5-50 ms a step at the scaled width
+TRAIN_STEPS = 5  # trainer steps timed at the shipped width, per dtype
+SESSION_STEPS = 4096  # steps a session call, the sessions' default
 KERNELS = ("wavenet_decode", "wavenet_ae_decode", "wavenet_decode_hbm", "wavenet_ae_decode_hbm")
 PROBE = "l2_probe"  # csrc/l2_probe.cu: one block's L2 read rate, built with the kernels
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM bytes/s, and
@@ -227,6 +249,7 @@ def block_step_bytes(w: dict, S: int, L: int, Cr: int, cond_elems: int = 0) -> i
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     if not (ROOT / "music_tpu_torch").is_dir():
         fail(f"run from the root of a checkout (no music_tpu_torch/ beside {__file__})")
     import torch
@@ -237,10 +260,12 @@ def main() -> None:
     import numpy as np
 
     from music_tpu_torch import cli
-    from music_tpu_torch.core import checkpoint
+    from music_tpu_torch.core import checkpoint, metrics, optim
     from music_tpu_torch.core.config import load_params_dir
     from music_tpu_torch.data import wavio
+    from music_tpu_torch.data.audio import AudioWindows
     from music_tpu_torch.generate import wavenet_generate
+    from music_tpu_torch.generate.serving import AEDecodeSession, DecodeSession
     from music_tpu_torch.generate.wavenet_generate import stream_tiling, streams_weights
     from music_tpu_torch.kernels import _build
     from music_tpu_torch.kernels import wavenet_ae_decode as aedec
@@ -251,6 +276,7 @@ def main() -> None:
     from music_tpu_torch.models import wavenet_ae as ae
     from music_tpu_torch.ops.conv import full_fp32
     from music_tpu_torch.ops.mulaw import mu_law_encode
+    from music_tpu_torch.train import wavenet_train
     from music_tpu_torch.utils.parity import (
         ae_reference_scores, ae_teacher_forced_scores, reference_scores,
         teacher_forced_scores, tie_aware_check,
@@ -704,25 +730,23 @@ def main() -> None:
             check(f"B2 {label} vs the f32 model", ker, model_scores(model, prime, tiny, **sampling),
                   TOL_BF16)
 
-    # the tiny model trained on the card (Adam, a repeating pattern, loss <
-    # 0.1), where int8 products must reproduce the f32 model's tokens
+    # the tiny model trained on the card by the port's trainer step (Adam, a
+    # repeating pattern, loss < 0.1), where int8 products must reproduce the
+    # f32 model's tokens
     pat = np.tile(np.arange(8).repeat(3), 400)[: tiny.receptive_field + 256]
     pat_t = torch.from_numpy(pat).to(dev)[None]
-    trained = wn.init_params(tiny, torch.Generator().manual_seed(0), device=dev)
-    trained = {k: v.requires_grad_(True) for k, v in trained.items()}
-    opt = torch.optim.Adam(trained.values(), lr=1e-2)
+    tx = optim.make_optimizer("adam", 1e-2)
+    state = wavenet_train.init_state(torch.Generator().manual_seed(0), tiny, tx, dev)
+    train_step = wavenet_train.make_train_step(tiny, tx)
     with full_fp32():
         for it in range(1, 601):
-            loss = wn.loss_fn(trained, pat_t, tiny)
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
+            state, loss = train_step(state, pat_t)
             if it >= 120 and loss.item() < 0.1:
                 break
     print(f"[9] tiny model trained on the card: loss {loss.item():.4f} after {it} Adam steps")
     if loss.item() >= 0.1:
         fail(f"training the tiny model reached loss {loss.item():.3g}, not < 0.1")
-    trained = {k: v.detach() for k, v in trained.items()}
+    trained = state.params
     P16 = P + 16
     tprime = pat_t[:, :P16].to(torch.int32)
     with full_fp32():
@@ -1126,7 +1150,304 @@ def main() -> None:
               f"{b / rate * 1e6:.1f} us/step ({b} B a block at {rate / 1e9:.1f} GB/s), "
               f"kernel {ker * 1e-3 * rate / b:.2f}x the floor  [{card}]", flush=True)
 
-    # -- 16. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 16. train -> checkpoint at the shipped width: a dataset of seeded
+    # sine mixtures through the CLI's `dataset build-audio`, `wavenet train`
+    # for two epochs of the shipped dataset params (window 40000, batch 4;
+    # learning rate 1e-3), resumed for one more; then the trainer's step
+    # timed in f32 and with compute_dtype bf16, and `wavenet-ae train` for
+    # one epoch
+    t_new = time.perf_counter()
+    shipped = load_params_dir(params_root / "wavenet")
+    shipped_ae = load_params_dir(params_root / "wavenet_autoencoder")
+    new_phase_s = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(16)
+        t_song = np.arange(20 * sr + sr // 10) / sr
+        for i in range(2):  # two songs of 20.1 s: one 20 s piece each
+            freqs, amps = rng.uniform(80, 1000, 4), rng.uniform(0.05, 0.25, 4)
+            phases = rng.uniform(0, 2 * np.pi, 4)
+            song = sum(a * np.sin(2 * np.pi * f * t_song + p)
+                       for f, a, p in zip(freqs, amps, phases))
+            wavio.write_wav(tmp / "songs" / f"song_{i}.wav", song.astype(np.float32), sr)
+        cli.main(["dataset", "build-audio", "--audio-dir", str(tmp / "songs"),
+                  "--out-dir", str(tmp / "data"), "--duration", "20"])
+        pkl = tmp / "data" / "np_audio.pkl"
+        windows = AudioWindows.from_pickle(pkl, full.receptive_field,
+                                           shipped["dataset_params"]["window_length"])
+        batch_size = shipped["dataset_params"]["batch_size"]
+        per_epoch = len(windows) // batch_size
+
+        def params_dir(name, model_file, model_json, family, **train):
+            """A params directory: the shipped model, dataset and train
+            params, the dataset at ``pkl``, logs and checkpoints in ``tmp``."""
+            d = tmp / name
+            d.mkdir(exist_ok=True)
+            (d / model_file).write_text(json.dumps(model_json))
+            (d / "dataset_params.json").write_text(json.dumps(
+                {**family["dataset_params"], "audio_path": str(pkl)}))
+            (d / "train_params.json").write_text(json.dumps(
+                {**family["train_params"], "learning_rate": 1e-3, "print_every": 1,
+                 "log_dir": str(tmp / f"{name}_logs"), "restore_dir": str(tmp / f"{name}_ckpt"),
+                 **train}))
+            return d
+
+        wn_dir = params_dir("wavenet", "wavenet_params.json", shipped["wavenet_params"], shipped,
+                            num_epochs=2)
+        t0 = time.perf_counter()
+        cli.main(["wavenet", "train", "--params-dir", str(wn_dir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logged = [json.loads(line) for line in (tmp / "wavenet_logs" / "metrics.jsonl").open()
+                  if '"kind": "loss"' in line]
+        if len(logged) != 2 * per_epoch or checkpoint.latest_step(tmp / "wavenet_ckpt") != len(
+                logged):
+            fail(f"[16] wavenet train: {len(logged)} logged steps, checkpoint at "
+                 f"{checkpoint.latest_step(tmp / 'wavenet_ckpt')}, want {2 * per_epoch}")
+        losses = [round(r["loss"], 4) for r in logged]
+        print(f"[16] wavenet train, shipped width: {len(windows)} windows of "
+              f"{windows.window} codes, {len(logged)} steps of {batch_size} in {wall:.2f} s "
+              f"(first call: allocator and kernels cold); loss trace {losses}; trainer's "
+              f"pieces/s at its last step {logged[-1]['pieces_per_sec']}  [{card}]", flush=True)
+        if not all(np.isfinite(losses)):
+            fail("[16] wavenet train: a loss is not finite")
+        (wn_dir / "train_params.json").write_text(json.dumps(
+            {**json.loads((wn_dir / "train_params.json").read_text()), "num_epochs": 1}))
+        cli.main(["wavenet", "train", "--params-dir", str(wn_dir)])
+        resumed = metrics.MetricsLogger(tmp / "wavenet_logs", echo=False).last_step()
+        if resumed != 3 * per_epoch or checkpoint.latest_step(tmp / "wavenet_ckpt") != resumed:
+            fail(f"[16] the resumed run ended at step {resumed}, want {3 * per_epoch}")
+        print(f"[16] resumed from step {2 * per_epoch} to {resumed}: checkpoints "
+              f"{checkpoint.all_steps(tmp / 'wavenet_ckpt')}", flush=True)
+
+        # the trainer's step alone, on one batch, after a warm-up step
+        tx = optim.from_config(shipped["train_params"])
+        state = checkpoint.restore(tmp / "wavenet_ckpt", wavenet_train.init_state(
+            torch.Generator().manual_seed(0), full, tx, dev))
+        batch = torch.from_numpy(next(windows.batches(batch_size))).to(dev)
+        train_ms = {}
+        for label, compute_dtype in (("f32", None), ("compute_dtype bf16", torch.bfloat16)):
+            step_fn = wavenet_train.make_train_step(full, tx, compute_dtype)
+            st, loss = step_fn(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                st, loss = step_fn(st, batch)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            train_ms[label] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+            print(f"[16] trainer step, shipped width, window {windows.window}, batch "
+                  f"{batch_size}, {label}: {train_ms[label]:.1f} ms a step = "
+                  f"{batch_size / train_ms[label] * 1e3:.1f} pieces/s over {TRAIN_STEPS} steps, "
+                  f"loss {loss:.4f}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]", flush=True)
+        del st, state, batch
+
+        ae_dir = params_dir("wavenet_ae", "model_params.json", shipped_ae["model_params"],
+                            shipped_ae, num_epochs=1)
+        t0 = time.perf_counter()
+        cli.main(["wavenet-ae", "train", "--params-dir", str(ae_dir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ae_logged = [json.loads(line)
+                     for line in (tmp / "wavenet_ae_logs" / "metrics.jsonl").open()
+                     if '"kind": "loss"' in line]
+        ae_losses = [round(r["loss"], 4) for r in ae_logged]
+        if len(ae_logged) != per_epoch or not all(np.isfinite(ae_losses)):
+            fail(f"[16] wavenet-ae train: losses {ae_losses}, want {per_epoch} finite")
+        print(f"[16] wavenet-ae train, shipped width: {len(ae_logged)} steps of {batch_size} in "
+              f"{wall:.2f} s (first call, cold); loss trace {ae_losses}; trainer's pieces/s at "
+              f"its last step {ae_logged[-1]['pieces_per_sec']}  [{card}]", flush=True)
+        new_phase_s["16"] = time.perf_counter() - t_new
+
+        # -- 17. the trained checkpoint decoded on the card through the CLI (B1,
+        # one f32 stream), tie-aware against the plain model
+        t0 = time.perf_counter()
+        reset_counts()
+        cli.main(["wavenet", "generate", "--checkpoint", str(tmp / "wavenet_ckpt"),
+                  "--params-dir", str(wn_dir), "--duration", "0.25",
+                  "--out", str(tmp / "trained.wav")])
+        torch.cuda.synchronize()
+        if dec.LAUNCHES != 1 or hbm.LAUNCHES != 0:
+            fail("[17] the trained checkpoint was not decoded by one launch of B1")
+        main_path_launches["wavenet_decode"] += dec.LAUNCHES
+        tp_ = wn.params_from_numpy(checkpoint.restore_subtree(tmp / "wavenet_ckpt", ".params"),
+                                   device=dev, cfg=full)
+        toks = torch.from_numpy(pcm_codes(tmp / "trained.wav", 256)[None, :512]).to(dev)
+        scores = teacher_forced_scores(tp_, silence[:1], toks, full)
+        check("[17] trained checkpoint, one f32 stream through B1, first 512 steps", toks,
+              lambda t: scores, TOL_F32, kernel="wavenet_decode")
+        def decisive(scores):  # the share of steps whose top-2 logit margin exceeds 1e-3
+            top2 = scores.topk(2, dim=-1).values
+            return float(((top2[..., 0] - top2[..., 1]) > 1e-3).float().mean())
+
+        at_random = teacher_forced_scores(
+            fp, silence[:1], torch.from_numpy(codes["one stream"][:, :512]).to(dev), full)
+        print(f"[17] top-2 logit margin above 1e-3 on {100 * decisive(scores):.1f}% of the 512 "
+              f"steps of the trained checkpoint, {100 * decisive(at_random):.1f}% of those of "
+              "the random weights of [4]", flush=True)
+        new_phase_s["17"] = time.perf_counter() - t0
+
+        # -- 18. the serving sessions on the trained checkpoints: DecodeSession
+        # with 32 bf16 categorical streams (4096 steps a call, streams joining
+        # and finishing) and f32 argmax join/leave held tie-aware; then
+        # AEDecodeSession with the 32 clips of [7] (f32, 4 joining late)
+        t0 = time.perf_counter()
+        reset_counts()
+        data_codes = [np.asarray(c) for c in windows.data.reshape(2, -1)]
+        P_full = full.receptive_field + max(full.dilations)
+
+        def data_prime(i):  # a prime of real codes from the dataset's piece i % 2
+            start = (i // 2 + 1) * (len(data_codes[0]) - P_full) // 8
+            return data_codes[i % 2][start : start + P_full]
+
+        sess = DecodeSession(full, tp_, capacity=32, seed=5, steps_per_call=SESSION_STEPS)
+        for _ in range(28):
+            sess.add()
+        call_walls = []
+        for call in range(3):
+            if call == 1:  # four streams join, primed with the dataset's codes
+                for j in range(4):
+                    sess.add(data_prime(j))
+            if call == 2:  # four finish, four more join
+                for sid in sess.active[:4]:
+                    sess.finish(sid)
+                for _ in range(4):
+                    sess.add()
+            tails = sess.state_dict()
+            t1 = time.perf_counter()
+            out = sess.step()
+            torch.cuda.synchronize()
+            call_walls.append(time.perf_counter() - t1)
+            if len(out) != len(sess.active) or any(v.shape != (SESSION_STEPS,) for v in out.values()):
+                fail(f"[18] DecodeSession call {call}: {len(out)} streams of "
+                     f"{[v.shape for v in out.values()][:1]}")
+        if dec.LAUNCHES != 3 or hbm.LAUNCHES != 0:
+            fail(f"[18] DecodeSession: {dec.LAUNCHES} launches of B1, {hbm.LAUNCHES} of B2")
+        session_launches = dec.LAUNCHES
+        # the last call's split: prime and packs (prepare), the kernel alone
+        # (CUDA events, SESSION_STEPS steps), and the rest (rows, copies, tails)
+        rows = np.stack([tails["streams"][s] for s in sorted(tails["streams"])])
+        prime_rows = torch.from_numpy(rows).to(dev)
+        opts = dict(cfg=full, dtype=bf16, sample_mode="categorical", seed=tails["seed"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inputs = dec.prepare(tp_, prime_rows, n_streams=1, n_stream_groups=32, **opts)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t1
+        ker_s = timed(lambda n: dec.decode_cuda(*inputs, n_steps=n, n_streams=1, **opts),
+                      SESSION_STEPS, 1) * (SESSION_STEPS - 1) / 1e3
+        wall_s = call_walls[-1]
+        print(f"[18] DecodeSession, 32 bf16 categorical streams, {SESSION_STEPS} steps a call: "
+              "call walls "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in call_walls)} ms; last call: prime and "
+              f"packs {prep_s * 1e3:.1f} ms + kernel {ker_s * 1e3:.1f} ms + the rest "
+              f"{(wall_s - prep_s - ker_s) * 1e3:.1f} ms; overhead {100 * (1 - ker_s / wall_s):.1f}"
+              f"% of the call  [{card}]", flush=True)
+
+        reset_counts()
+        fsess = DecodeSession(full, tp_, capacity=4, dtype=f32, sample_mode="argmax",
+                              steps_per_call=512)
+        primes = [data_prime(i + 4) for i in range(4)]
+        streams = {}
+        sids = [fsess.add(primes[0]), fsess.add(primes[1])]
+        for call in range(3):
+            if call == 1:
+                sids.append(fsess.add(primes[2]))
+            if call == 2:
+                fsess.finish(sids[0])
+                sids.append(fsess.add(primes[3]))
+            for sid, codes in fsess.step().items():
+                streams.setdefault(sids.index(sid), []).append(codes)
+        if dec.LAUNCHES != 3:
+            fail(f"[18] f32 DecodeSession: {dec.LAUNCHES} launches of B1, want 3")
+        session_launches += dec.LAUNCHES
+        for i, chunks in sorted(streams.items()):
+            toks = torch.from_numpy(np.concatenate(chunks)[None]).to(dev)
+            prime_i = torch.from_numpy(primes[i][None]).to(dev)
+            whole = wavenet_generate._fused_decode(tp_, prime_i, full, toks.shape[1], f32,
+                                                   "argmax", 1.0, 0)
+            for name, t_ in (("session", toks), ("uninterrupted decode", whole)):
+                check(f"[18] f32 DecodeSession stream {i} ({len(chunks)} calls), {name}", t_,
+                      model_scores(tp_, prime_i, full), TOL_F32, kernel="wavenet_decode")
+            print(f"    [18] stream {i}: session and uninterrupted decode equal on "
+                  f"{int((whole == toks).sum())}/{toks.numel()} tokens", flush=True)
+        main_path_launches["wavenet_decode"] += session_launches
+
+        reset_counts()
+        ae_tp = ae.params_from_numpy(checkpoint.restore_subtree(tmp / "wavenet_ae_ckpt",
+                                                                ".params"), device=dev, cfg=ae_full)
+        src_np = src_codes.cpu().numpy()
+        aes = AEDecodeSession(ae_full, ae_tp, capacity=n_clips, steps_per_call=SESSION_STEPS)
+        ae_sids = [aes.add(src_np[i]) for i in range(n_clips - 4)]
+        ae_out, ae_walls, ae_state = {}, [], []
+        for call in range(3):
+            if call == 1:
+                ae_sids += [aes.add(src_np[i]) for i in range(n_clips - 4, n_clips)]
+            ae_state.append(aes.state_dict())
+            t1 = time.perf_counter()
+            for sid, codes in aes.step().items():
+                ae_out.setdefault(sid, []).append(codes)
+            torch.cuda.synchronize()
+            ae_walls.append(time.perf_counter() - t1)
+        if aedec.LAUNCHES != 3 or aehbm.LAUNCHES != 0:
+            fail(f"[18] AEDecodeSession: {aedec.LAUNCHES} launches of B3, {aehbm.LAUNCHES} of B4")
+        main_path_launches["wavenet_ae_decode"] += aedec.LAUNCHES
+        with torch.no_grad(), full_fp32():
+            trained_enc = ae.encode(ae_tp, src_codes, ae_full)
+        ae_P = ae_full.receptive_field + max(ae_full.dilations)
+        for sid, call in ((0, 0), (0, 1), (n_clips - 1, 1), (1, 2)):
+            # the call's first 512 codes, teacher-forced from the tail it
+            # started from on the stream's absolute clock
+            first = call - (1 if sid >= n_clips - 4 else 0)
+            st = ae_state[call]["streams"][sid]
+            toks = torch.from_numpy(ae_out[sid][first][None, :512]).to(dev)
+            tail = torch.from_numpy(st["tail"][None]).to(dev)
+            check(f"[18] AEDecodeSession clip {sid}, call {call} (clock {st['clock']}), first "
+                  "512 steps", toks,
+                  lambda t, sid=sid, tail=tail, clock=st["clock"]: ae_teacher_forced_scores(
+                      ae_tp, trained_enc[sid:sid + 1], tail, t, ae_full, pos_offset=clock),
+                  TOL_F32, kernel="wavenet_ae_decode")
+        # the table build of one call at 32 clips: the session's window of
+        # frames, against every stream's whole encoding
+        win = torch.stack([aes._window(aes._streams[s]["enc"], aes._streams[s]["clock"])[0]
+                           for s in aes.active])
+        table_ms = {}
+        for label, enc_ in (("window", win), ("whole encoding", trained_enc)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(5):
+                aedec.build_cond_tables(ae_tp, enc_, ae_full, f32)
+            torch.cuda.synchronize()
+            table_ms[label] = ((time.perf_counter() - t1) / 5 * 1e3, enc_.shape[1])
+        S_ae, G_ae = stream_tiling(n_clips, dev, aedec.max_streams(ae_full))
+        pos = torch.tensor([aes._window(aes._streams[s]["enc"], aes._streams[s]["clock"])[1]
+                            for s in aes.active], device=dev)
+        tails_ae = torch.from_numpy(np.stack([aes._streams[s]["tail"] for s in aes.active]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        inputs = aedec.prepare(ae_tp, win, tails_ae.to(dev), cfg=ae_full, n_streams=S_ae,
+                               n_stream_groups=G_ae, pos_offset=pos)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t1
+        ker_s = timed(lambda n: aedec.decode_cuda(*inputs, cfg=ae_full, n_steps=n,
+                                                  n_streams=S_ae), SESSION_STEPS, 1)
+        ker_s *= (SESSION_STEPS - 1) / 1e3
+        print(f"[18] AEDecodeSession, 32 f32 clips, {SESSION_STEPS} steps a call: call walls "
+              f"{', '.join(f'{w * 1e3:.1f}' for w in ae_walls)} ms; a call's prime, packs and "
+              f"tables {prep_s * 1e3:.1f} ms + kernel {ker_s * 1e3:.1f} ms; overhead "
+              f"{100 * (1 - ker_s / ae_walls[-1]):.1f}% of the last call; table build "
+              + ", ".join(f"{k} ({f} frames) {ms:.2f} ms" for k, (ms, f) in table_ms.items())
+              + f"  [{card}]", flush=True)
+        new_phase_s["18"] = time.perf_counter() - t0
+    print(f"[18] the train and serve phases 16-18 took {time.perf_counter() - t_new:.1f} s ("
+          + ", ".join(f"{k}: {v:.1f} s" for k, v in new_phase_s.items()) + ")", flush=True)
+    if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
+                                   for m in sys.modules):
+        fail("jax or the JAX package was imported")
+
+    # -- 19. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
     # PyTorch call computes any of the decodes)
     described = [
@@ -1135,6 +1456,7 @@ def main() -> None:
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
+    print(f"[19] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

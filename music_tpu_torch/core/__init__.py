@@ -1,1 +1,2 @@
-"""Shared runtime core: checkpoint I/O and params files."""
+"""Shared runtime core: checkpoint I/O, params files, optimizers, metrics
+and seeds."""

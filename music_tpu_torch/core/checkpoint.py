@@ -6,7 +6,8 @@ leaf) and ``manifest.json`` (step, format 1, and for each leaf its key path
 in ``jax.tree_util.keystr`` form, its npz key and dtype).  Key paths read
 ``['name']`` for a dict key, ``[i]`` for a list or tuple index and
 ``.name`` for a dataclass field, e.g. ``.params['fg']`` for the trainer's
-``TrainState``.  Either package reads what the other writes.
+``TrainState`` or ``.opt_state[0].mu['fg']`` for its Adam moments.  Either
+package reads what the other writes.
 """
 
 from __future__ import annotations
@@ -109,6 +110,94 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
+def _checkpoint_dir(ckpt_dir: str | Path, step: int | None) -> Path:
+    """``ckpt_dir/step_<step>``, the latest one when ``step`` is None."""
+    ckpt_dir = Path(ckpt_dir)
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    return ckpt_dir / f"step_{step}"
+
+
+def _map_leaves(state: Any, fn, path: str = "") -> Any:
+    """``state`` rebuilt with every leaf replaced by ``fn(path, leaf)``;
+    the structure (and ``_flatten``'s paths) unchanged."""
+    if state is None:
+        return None
+    if isinstance(state, dict):
+        return {k: _map_leaves(v, fn, f"{path}[{k!r}]") for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        items = [_map_leaves(v, fn, f"{path}[{i}]") for i, v in enumerate(state)]
+        return type(state)(items) if isinstance(state, list) else tuple(items)
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return dataclasses.replace(state, **{
+            f.name: _map_leaves(getattr(state, f.name), fn, f"{path}.{f.name}")
+            for f in dataclasses.fields(state)})
+    return fn(path, state)
+
+
+def _restored_leaf(key: str, arr: np.ndarray, ref: Any) -> Any:
+    """The stored ``arr`` in the place of the example leaf ``ref``: the
+    same shape, the same kind of number (float, integer or bool), cast to
+    ``ref``'s dtype and, for a tensor, put on its device."""
+    ref_arr = ref.detach() if isinstance(ref, torch.Tensor) else np.asarray(ref)
+    if tuple(ref_arr.shape) != arr.shape:
+        raise ValueError(f"checkpoint leaf {key} shape {arr.shape} != expected "
+                         f"{tuple(ref_arr.shape)}")
+    ref_float = ref_arr.is_floating_point() if isinstance(ref_arr, torch.Tensor) else (
+        np.issubdtype(ref_arr.dtype, np.floating))
+    ref_bool = ref_arr.dtype in (torch.bool, np.bool_)
+    if (ref_float != np.issubdtype(arr.dtype, np.floating)
+            or ref_bool != (arr.dtype == np.bool_)):
+        raise TypeError(f"checkpoint leaf {key} has dtype {arr.dtype}, expected {ref_arr.dtype}")
+    if isinstance(ref, torch.Tensor):
+        return torch.from_numpy(np.array(arr)).to(device=ref.device, dtype=ref.dtype)
+    return arr.astype(ref_arr.dtype)
+
+
+def restore(ckpt_dir: str | Path, example_state: Any, step: int | None = None) -> Any:
+    """The checkpoint at ``step`` (default: the latest) in the structure of
+    ``example_state``: every leaf of the example must be stored with its
+    shape and kind of number, and comes back in its dtype and on its
+    device.  Raises ``FileNotFoundError`` when there is no checkpoint and
+    ``KeyError`` for a missing leaf."""
+    target = _checkpoint_dir(ckpt_dir, step)
+    manifest = json.loads((target / _MANIFEST).read_text())
+    with np.load(target / _ARRAYS) as data:
+        stored = {leaf["path"]: data[leaf["key"]] for leaf in manifest["leaves"]}
+
+    def fill(path, leaf):
+        if path not in stored:
+            raise KeyError(f"checkpoint {target} missing leaf {path}")
+        return _restored_leaf(path, stored[path], leaf)
+
+    return _map_leaves(example_state, fill)
+
+
+def restore_or_init(ckpt_dir: str | Path, init_state: Any) -> tuple[Any, int]:
+    """Resume if a checkpoint exists: ``(state, step)`` of the latest one,
+    else ``(init_state, 0)``."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return init_state, 0
+    return restore(ckpt_dir, init_state, step), step
+
+
+def leaf_shapes(ckpt_dir: str | Path, prefix: str = "",
+                step: int | None = None) -> dict[str, tuple]:
+    """Shapes of the stored leaves under ``prefix``, keyed by their paths
+    below it (e.g. ``"['fg']"`` under ``".params"``)."""
+    target = _checkpoint_dir(ckpt_dir, step)
+    manifest = json.loads((target / _MANIFEST).read_text())
+    with np.load(target / _ARRAYS) as data:
+        return {
+            leaf["path"][len(prefix):]: data[leaf["key"]].shape
+            for leaf in manifest["leaves"]
+            if leaf["path"].startswith(prefix)
+        }
+
+
 def _parse_path(path: str) -> list[str | int]:
     keys, pos = [], 0
     for m in _KEY_RE.finditer(path):
@@ -139,12 +228,7 @@ def restore_subtree(ckpt_dir: str | Path, prefix: str, step: int | None = None) 
     latest checkpoint (or ``step``), rebuilt as nested dicts and lists of
     numpy arrays keyed by the path below the prefix: a WaveNet trainer
     checkpoint gives ``{"causal": ..., "fg": ..., ...}``."""
-    ckpt_dir = Path(ckpt_dir)
-    if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
-    target = ckpt_dir / f"step_{step}"
+    target = _checkpoint_dir(ckpt_dir, step)
     manifest = json.loads((target / _MANIFEST).read_text())
     tree: dict = {}
     with np.load(target / _ARRAYS) as data:

@@ -1,5 +1,6 @@
-"""WAV file I/O and resampling on numpy and the stdlib ``wave`` module
-(counterpart of the I/O half of :mod:`music_tpu.data.wavio`)."""
+"""WAV file I/O, resampling, amplitude normalization and silence trimming
+on numpy and the stdlib ``wave`` module (counterpart of
+:mod:`music_tpu.data.wavio`)."""
 
 from __future__ import annotations
 
@@ -48,3 +49,36 @@ def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     n_out = int(round(len(audio) * sr_out / sr_in))
     t_out = np.arange(n_out) * (sr_in / sr_out)
     return np.interp(t_out, np.arange(len(audio)), audio).astype(np.float32)
+
+
+def normalize_amplitude(audio: np.ndarray, target_avg: float) -> np.ndarray:
+    """Scale so mean |amplitude| == target."""
+    avg = float(np.mean(np.abs(audio)))
+    if avg == 0.0:
+        return audio
+    return (audio * (target_avg / avg)).astype(np.float32)
+
+
+def rms_energy(audio: np.ndarray, frame_length: int = 2048, hop_length: int = 512) -> np.ndarray:
+    """Per-frame RMS energy over centered frames."""
+    pad = frame_length // 2
+    x = np.pad(audio.astype(np.float64), (pad, pad))
+    n_frames = 1 + (len(x) - frame_length) // hop_length
+    idx = np.arange(frame_length)[None, :] + hop_length * np.arange(n_frames)[:, None]
+    frames = x[idx]
+    return np.sqrt(np.mean(frames**2, axis=1)).astype(np.float32)
+
+
+def trim_silence(audio: np.ndarray, threshold: float, frame_length: int = 2048) -> np.ndarray:
+    """Trim leading and trailing frames whose RMS is at or below
+    ``threshold`` (empty when everything is silent)."""
+    if audio.size < frame_length:
+        frame_length = max(int(audio.size), 1)
+    hop = 512
+    energy = rms_energy(audio, frame_length, hop)
+    frames = np.nonzero(energy > threshold)[0]
+    if frames.size == 0:
+        return audio[0:0]
+    start = frames[0] * hop
+    end = min(frames[-1] * hop, audio.size)
+    return audio[start:end]

@@ -51,6 +51,20 @@ def load_params(
     return {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
 
 
+def frame_window_width(prime_len: int, steps: int, pool: int) -> int:
+    """Encoding frames that cover a prime and one decode call of ``steps``,
+    plus slack for the clamp at the end."""
+    return -(-(prime_len + steps) // pool) + 2
+
+
+def frame_window(clock: int, n_frames: int, width: int, pool: int) -> tuple[int, int]:
+    """``(f0, offset)``: the first frame of the ``width``-frame window of an
+    ``n_frames``-frame encoding that conditions a decode whose prime starts
+    at absolute time ``clock``, and that time on the window's clock."""
+    f0 = max(0, min(clock // pool, n_frames - width))
+    return f0, clock - f0 * pool
+
+
 def _encode_sources(params, audio: np.ndarray, cfg, device):
     """µ-law codes ``[n, T]`` of float audio rows and their encoding ``[n,
     F, W]`` (full float32)."""
@@ -61,8 +75,11 @@ def _encode_sources(params, audio: np.ndarray, cfg, device):
     return codes, encoding
 
 
-def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed, dtype):
-    """Reconstruction codes ``[n, n_steps]`` of the sources ``codes``."""
+def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed, dtype,
+            pos_offset=0):
+    """Reconstruction codes ``[n, n_steps]`` of the sources ``codes``; on
+    the fused path ``pos_offset`` (an int or ``[n]``) is the absolute time
+    of ``codes[:, 0]``."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "scan":
@@ -79,7 +96,7 @@ def _decode(params, encoding, codes, cfg, n_steps, *, backend, sample_mode, seed
             f"receptive_field + max dilation = {prime_len} samples (got sample_mode="
             f"{sample_mode!r}, {codes.shape[1]} samples); use backend='scan'"
         )
-    kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype)
+    kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, pos_offset=pos_offset)
     n, device, prime = codes.shape[0], codes.device, codes[:, :prime_len]
     if streams_weights(n, device, wavenet_ae_decode, wavenet_ae_decode_hbm, cfg, dtype):
         S, G = stream_tiling(n, device, wavenet_ae_decode_hbm.max_streams(cfg, dtype))

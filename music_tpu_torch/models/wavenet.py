@@ -151,17 +151,35 @@ def _bias(params: dict, cfg: WaveNetConfig, name: str, i: int | None = None):
     return b if i is None else b[i]
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
+            fuse_taps: bool = False) -> torch.Tensor:
     """Logits ``[B, T - receptive_field + 1, Q]`` over int codes ``[B, T]``:
-    the prediction for the sample after each full receptive field."""
+    the prediction for the sample after each full receptive field.
+    ``fuse_taps`` contracts each layer's taps in one matmul (the trainer's
+    form; same math, reassociated adds)."""
     T = tokens.shape[1]
-    out_width = T - cfg.receptive_field + 1
-    if out_width <= 0:
+    if T - cfg.receptive_field + 1 <= 0:
         raise ValueError(f"sequence length {T} < receptive field {cfg.receptive_field}")
     x = token_causal_conv(tokens, params["causal"], _bias(params, cfg, "causal_b"))
+    return _forward_from_causal(params, x, cfg, fuse_taps=fuse_taps)
+
+
+def forward_onehot(params: dict, wave: torch.Tensor, cfg: WaveNetConfig) -> torch.Tensor:
+    """:func:`forward` over a one-hot input ``[B, T, Q]`` (channels last)
+    instead of int codes."""
+    x0 = dilated_causal_conv(wave, params["causal"], _bias(params, cfg, "causal_b"), dilation=1)
+    return _forward_from_causal(params, x0, cfg)
+
+
+def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
+                         fuse_taps: bool = False) -> torch.Tensor:
+    """The layers after the causal conv: ``x [B, T - fw + 1, Cr]`` ->
+    logits ``[B, T - receptive_field + 1, Q]``."""
+    out_width = x.shape[1] + cfg.filter_width - cfg.receptive_field
     skip_total = None
     for i, d in enumerate(cfg.dilations):
-        fg = dilated_causal_conv(x, params["fg"][i], _bias(params, cfg, "fg_b", i), dilation=d)
+        fg = dilated_causal_conv(x, params["fg"][i], _bias(params, cfg, "fg_b", i), dilation=d,
+                                 fuse_taps=fuse_taps)
         z = _gate(fg)
         dense = conv1x1(z, params["dense"][i], _bias(params, cfg, "dense_b", i))
         x = dense + x[:, -dense.shape[1]:, :]
@@ -172,12 +190,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig) -> torch.Ten
     return conv1x1(h, params["post2"], _bias(params, cfg, "post2_b"))
 
 
-def loss_fn(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig) -> torch.Tensor:
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
+            fuse_taps: bool = False, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Next-sample cross entropy: ``tokens[:, receptive_field:]`` are the
-    targets of the logits at positions ``[:-1]``."""
-    logits = forward(params, tokens[:, :-1], cfg)
+    targets of the logits at positions ``[:-1]``.  With ``compute_dtype``
+    (mixed precision, e.g. ``torch.bfloat16``) the parameters are cast to
+    it inside the loss, so their gradients stay in the master dtype, and
+    the log-softmax runs in float32."""
+    if compute_dtype is not None:
+        params = {k: v.to(compute_dtype) for k, v in params.items()}
+    logits = forward(params, tokens[:, :-1], cfg, fuse_taps=fuse_taps)
     targets = tokens[:, cfg.receptive_field:].long()
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, targets[..., None]).mean()
 
 
