@@ -7,7 +7,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build all four CUDA kernels and the L2 read probe from
-   ``music_tpu_torch/csrc/`` (one nvcc per source, started together);
+   ``music_tpu_torch/csrc/`` (one nvcc per source, started together), and
+   meanwhile start ``torch.profiler`` (CUPTI) for phases 19-20;
 
 WaveNet (kernel ``wavenet_decode``):
 
@@ -77,7 +78,7 @@ int8 modes the weight-streaming body:
     tie-aware 512 steps against the f32 model (the first 4 of the 272);
     int8 weights on the 32 clips against their plain version;
 14. samples/s of both weight-streaming kernels (2048 steps) in each mode
-    and at the tiles past the resident carve, their plain versions (128
+    and at the tiles past the resident carve, their plain versions (64
     steps) at one stream a block, and the phase-timed build of the WaveNet
     kernel (one f32 stream, clock64 spans per phase); then both sides of
     the routing rule, kernels only: each resident kernel at the scaled
@@ -110,7 +111,30 @@ Train, checkpoint and serve, at the shipped widths:
     ``AEDecodeSession`` on the trained autoencoder with the 32 clips of
     phase 7 (4 joining a call late), tie-aware on each stream's absolute
     clock, with the call's split and its conditioning-table build;
-19. a JSON line describing each kernel (times in ms per decode step, with
+
+SeqGAN and LeakGAN at the shipped widths (no decode kernel on their paths;
+float32 matmuls in full float32):
+
+19. ``seqgan train`` (``params/seqgan``: V = 5000, E = H = 32, T = 20, batch
+    64, rollout 16, D of 1720 filters) in a temporary working directory:
+    the oracle corpus, MLE pretraining, D pretraining and the shipped 2
+    adversarial rounds; both sample files checked and every loss and
+    oracle NLL finite; the seconds of each MLE epoch, PG step (with its
+    rollout) and D phase; ``rollout_rewards`` alone for 19,456 streams (ms,
+    peak memory), a PG step's device busy share (``torch.profiler``) and
+    peak memory, and the busy share of ten D steps; then at a tiny config
+    a PG step on the card and on the CPU from the same weights and Gumbel
+    noise (rewards within 1e-5, params and Adam state within 1e-5 of each
+    leaf's scale);
+20. ``leakgan train`` (``params/leak_gan``: V = 5258, G = 1720, goal 16,
+    H = 32, T = 20, step 5, batch 64, rollout 4) on a 1,024-sequence corpus
+    that the target-LSTM oracle writes from a seed, one epoch of each phase,
+    then again resuming from its checkpoint; the seconds of the pre, D and
+    adv phases; ``get_rewards`` alone for 1,024 streams, an adv step's busy
+    share and peak memory, a pre step's busy share; then at the tiny
+    config ``get_rewards``, one adv step and ``eval_nll`` on the card and
+    the CPU from the same weights, noise and dropout masks (within 1e-5);
+21. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
     launches counted over the main-path phases 4, 7, 10, 13, 17 and 18),
     then the device JSON as the last line.
@@ -128,6 +152,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 from pathlib import Path
@@ -145,8 +170,9 @@ TOL_BF16 = 2e-3
 # too), so twice 2e-3, times 2
 TOL_AE_BF16 = 8e-3
 TIMED_STEPS, PLAIN_STEPS = 2048, 64  # the plain versions are no yardstick of speed
+TIMED_REPS = 2  # timed launches of TIMED_STEPS per kernel case, after a warm-up
 PROBE_REPS = 10  # passes over the array in the timed launch of the L2 probe
-PLAIN_STEPS_SCALED = 128  # the plain versions take 5-50 ms a step at the scaled width
+PLAIN_STEPS_SCALED = 64  # the plain versions take 5-50 ms a step at the scaled width
 TRAIN_STEPS = 5  # trainer steps timed at the shipped width, per dtype
 SESSION_STEPS = 4096  # steps a session call, the sessions' default
 KERNELS = ("wavenet_decode", "wavenet_ae_decode", "wavenet_decode_hbm", "wavenet_ae_decode_hbm")
@@ -248,6 +274,368 @@ def block_step_bytes(w: dict, S: int, L: int, Cr: int, cond_elems: int = 0) -> i
     return weights + S * (2 * L * Cr + cond_elems) * w["ecur"].element_size()
 
 
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def start_profiler() -> float:
+    """Profile one tiny CUDA op (the first profile of a process starts
+    CUPTI); its seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(4, device="cuda").sum()
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def timing_wrappers(dev, classes_methods: list[tuple[type, str]]):
+    """Wrap each ``cls.method`` to record its seconds (device synchronised
+    before and after) under ``"Cls.method"``, and the last instance under
+    ``"Cls"``; returns ``(records, undo)``."""
+    records: dict = {}
+    originals = []
+    for cls, name in classes_methods:
+        orig = getattr(cls, name)
+        originals.append((cls, name, orig))
+
+        def wrapper(self, *args, _orig=orig, _key=f"{cls.__name__}.{name}", **kwargs):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = _orig(self, *args, **kwargs)
+            sync(dev)
+            records.setdefault(_key, []).append(time.perf_counter() - t0)
+            records[type(self).__name__] = self
+            return out
+
+        setattr(cls, name, wrapper)
+
+    def undo():
+        for cls, name, orig in originals:
+            setattr(cls, name, orig)
+
+    return records, undo
+
+
+def device_busy_share(dev, fn) -> tuple[float, float, float | None]:
+    """``fn()``'s wall seconds (host clock, device synchronised), its device
+    busy seconds (the CUDA activities ``torch.profiler`` records over a
+    second call) and their ratio; ``None`` when the profiler saw no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    if dev.type != "cuda":
+        return wall, 0.0, None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) * 1e-6
+    return wall, busy, (busy / wall if busy > 0 else None)
+
+
+def busy_line(wall: float, busy: float, share: float | None) -> str:
+    return (f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms = "
+            + (f"{100 * share:.1f}%" if share is not None
+               else "not measured (the profiler saw no device time)") + " of it")
+
+
+def tree_close(name: str, ours, theirs, rel: float) -> float:
+    """Every leaf of ``ours`` within ``rel`` of the largest magnitude of the
+    same leaf of ``theirs`` (the same key paths; integer leaves equal);
+    returns the worst relative error."""
+    import numpy as np
+    import torch
+
+    from music_tpu_torch.core.checkpoint import _flatten
+
+    a, b = dict(_flatten(ours)), dict(_flatten(theirs))
+    if list(a) != list(b):
+        fail(f"{name}: key paths differ")
+    worst = 0.0
+    for path, want in b.items():
+        got = a[path].detach().cpu().double() if isinstance(a[path], torch.Tensor) else a[path]
+        want = want.detach().cpu().double() if isinstance(want, torch.Tensor) else want
+        got, want = np.asarray(got), np.asarray(want)
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(got - want).max()) / scale
+        worst = max(worst, err)
+        if err > rel:
+            fail(f"{name} {path}: card and CPU differ by {err:.3g} of the leaf's scale "
+                 f"(tolerance {rel})")
+    return worst
+
+
+def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) -> dict:
+    """Phases 19 (SeqGAN) and 20 (LeakGAN) at the widths of ``params_root``
+    (default the shipped params), in ``work_dir``; returns the seconds each
+    took.  They launch none of the decode kernels."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from music_tpu_torch import cli
+    from music_tpu_torch.core import checkpoint
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.models import leakgan as lg
+    from music_tpu_torch.models import seqgan as sg
+    from music_tpu_torch.ops.sampling import gumbel_noise
+    from music_tpu_torch.train import leakgan_train, seqgan_train
+
+    params_root = params_root or ROOT / "music_tpu_torch" / "params"
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("[19] TF32 matmuls are on: the GAN phases hold float32 parity")
+    seconds = {}
+    floats = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan|inf")
+
+    def run_cli(argv: list[str]) -> str:
+        """The CLI in ``work_dir``, its output echoed with its wall and returned."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main([*argv, "--device", dev.type])
+        sync(dev)
+        print("".join(f"    {line}\n" for line in buf.getvalue().splitlines())
+              + f"    ({' '.join(argv[:2])}: {time.perf_counter() - t0:.1f} s)", flush=True)
+        return buf.getvalue()
+
+    def finite_numbers(label: str, out: str) -> list[float]:
+        nums = [float(x) for x in floats.findall(out.split(":", 1)[-1])]
+        if not nums or not np.all(np.isfinite(nums)):
+            fail(f"{label}: a loss is not finite: {out.strip()}")
+        return nums
+
+    def reset_peak() -> None:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak() -> str:
+        n = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        return f"{n / 2**20:.0f} MiB" if n else "not measured"
+
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        # -- 19. SeqGAN at the shipped width
+        t_phase = time.perf_counter()
+        p = load_params_dir(params_root / "seqgan")["params"]
+        records, undo = timing_wrappers(dev, [
+            (seqgan_train.SeqGanTrainer, "pretrain_generator"),
+            (seqgan_train.SeqGanTrainer, "pg_step"),
+            (seqgan_train.SeqGanTrainer, "train_discriminator")])
+        try:
+            out = run_cli(["seqgan", "train", "--params-dir", str(params_root / "seqgan")])
+        finally:
+            undo()
+        for line in out.splitlines():
+            finite_numbers(f"[19] seqgan train, {line.split(':')[0]}", line)
+        positive = seqgan_train.read_samples(work_dir / "data" / "seqgan" / "positive.txt")
+        generated = seqgan_train.read_samples(work_dir / "data" / "seqgan" / "generated.txt")
+        for name, rows in (("positive", positive), ("generated", generated)):
+            if rows.shape != (p["generated_num"], p["seq_len"]) or rows.min() < 0 or (
+                    rows.max() >= p["vocab_size"]):
+                fail(f"[19] {name}.txt holds {rows.shape} ids in [{rows.min()}, {rows.max()}]")
+        tr = records["SeqGanTrainer"]
+        cfg = tr.cfg
+        n_streams = cfg.rollout_num * (cfg.g.seq_len - 1) * cfg.batch_size
+        print(f"[19] seqgan train, shipped width (V={cfg.g.vocab_size}, E=H={cfg.g.hidden_dim}, "
+              f"T={cfg.g.seq_len}, batch {cfg.batch_size}, rollout {cfg.rollout_num}, D "
+              f"{cfg.d.feature_dim} filters): both sample files of {len(positive)} sequences; "
+              f"MLE epoch {records['SeqGanTrainer.pretrain_generator'][0]:.3f} s "
+              f"({len(positive) // cfg.batch_size} steps, first call), PG steps with their "
+              "rollouts " + ", ".join(f"{s:.3f}" for s in records["SeqGanTrainer.pg_step"])
+              + " s, D phases (pretrain 1 x 1 epoch, then 5 x 3 epochs a round) "
+              + ", ".join(f"{s:.3f}" for s in records["SeqGanTrainer.train_discriminator"])
+              + f" s  [{card}]", flush=True)
+
+        print(f"    (phase 19 at {time.perf_counter() - t_phase:.1f} s)", flush=True)
+        # the rollout alone, 19,456 streams (host clock, device synchronised)
+        gen = torch.Generator(device=dev).manual_seed(19)
+        samples = sg.generate(tr.g_params, cfg.g, cfg.batch_size, generator=gen)
+        roll = lambda: sg.rollout_rewards(tr.g_params, tr.d_params, samples, g_cfg=cfg.g,
+                                          d_cfg=cfg.d, rollout_num=cfg.rollout_num,
+                                          generator=gen)
+        roll()
+        sync(dev)
+        reset_peak()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rewards = roll()
+        sync(dev)
+        roll_ms = (time.perf_counter() - t0) / 3 * 1e3
+        if rewards.shape != (cfg.batch_size, cfg.g.seq_len) or not torch.isfinite(rewards).all():
+            fail(f"[19] rollout rewards {tuple(rewards.shape)}, finite "
+                 f"{bool(torch.isfinite(rewards).all())}")
+        roll_peak = peak()
+        reset_peak()
+        wall, busy, share = device_busy_share(dev, lambda: tr.pg_step(generator=gen))
+        pg_peak = peak()
+        print(f"[19] rollout_rewards, {n_streams} streams: {roll_ms:.1f} ms (mean of 3, "
+              f"peak memory {roll_peak}); a PG step {busy_line(wall, busy, share)}, peak "
+              f"memory {pg_peak}  [{card}]", flush=True)
+        # ten D steps on one batch, half positives and half negatives
+        half = cfg.batch_size // 2
+        d_toks = torch.cat([torch.from_numpy(positive[:half]).long().to(dev),
+                            sg.generate(tr.g_params, cfg.g, half, generator=gen)])
+        d_labels = torch.cat([torch.ones(half), torch.zeros(half)]).long().to(dev)
+        wall, busy, share = device_busy_share(dev, lambda: [
+            tr.d_step(d_toks, d_labels, dropout_generator=gen) for _ in range(10)])
+        print(f"[19] ten D steps of {len(d_toks)}: {busy_line(wall, busy, share)}  [{card}]",
+              flush=True)
+
+        print(f"    (phase 19 at {time.perf_counter() - t_phase:.1f} s)", flush=True)
+        # card against CPU at a tiny config: the same weights and noise
+        tiny = seqgan_train.SeqGanConfig(
+            g=sg.GeneratorConfig(vocab_size=50, emb_dim=8, hidden_dim=8, seq_len=10),
+            d=sg.DiscriminatorConfig(vocab_size=50, emb_dim=8, filter_sizes=(1, 2, 3),
+                                     num_filters=(8, 8, 8), seq_len=10),
+            batch_size=4, rollout_num=3)
+        pair = [seqgan_train.SeqGanTrainer(tiny, seed=19, device=d) for d in ("cpu", dev)]
+        noise_gen = torch.Generator().manual_seed(190)
+        sample_noise = gumbel_noise(noise_gen, (10, 4, 50))
+        rollout_noise = gumbel_noise(noise_gen, (9, 3 * 9 * 4, 50))
+        outs = [t.pg_step(sample_noise=sample_noise, rollout_noise=rollout_noise)
+                for t in pair]
+        err_r = float((outs[0][1] - outs[1][1].cpu()).abs().max())
+        if err_r > 1e-5:
+            fail(f"[19] rollout rewards on the card and the CPU differ by {err_r:.3g}")
+        err_p = tree_close("[19] pg_step params", pair[1].g_params, pair[0].g_params, 1e-5)
+        err_o = tree_close("[19] pg_step Adam state", pair[1].g_opt, pair[0].g_opt, 1e-5)
+        print(f"[19] tiny config, card vs CPU on the same weights and noise: rollout rewards "
+              f"within {err_r:.2g}, pg_step params within {err_p:.2g} and Adam state within "
+              f"{err_o:.2g} of their scale (tolerance 1e-5)", flush=True)
+        seconds["19"] = time.perf_counter() - t_phase
+
+        # -- 20. LeakGAN at the shipped width on an oracle corpus of 1,024
+        t_phase = time.perf_counter()
+        lp = load_params_dir(params_root / "leak_gan")
+        lcfg = lg.LeakGanConfig.from_json(lp["leak_gan_params"])
+        ltp = lp["train_params"]
+        oracle = leakgan_train.LeakGanTrainer(
+            leakgan_train.LeakGanTrainConfig(cfg=lcfg, batch_size=ltp["batch_size"]),
+            seed=20, device=dev)
+        corpus = oracle.oracle_samples(1024)
+        np.save(work_dir / "corpus.npy", corpus)
+        del oracle
+        print(f"    (phase 20 at {time.perf_counter() - t_phase:.1f} s: the oracle corpus)",
+              flush=True)
+        records, undo = timing_wrappers(dev, [
+            (leakgan_train.LeakGanTrainer, "pretrain_generator"),
+            (leakgan_train.LeakGanTrainer, "pretrain_discriminator"),
+            (leakgan_train.LeakGanTrainer, "adv_step")])
+        argv = ["leakgan", "train", "--params-dir", str(params_root / "leak_gan"), "--corpus",
+                str(work_dir / "corpus.npy"), "--checkpoint", str(work_dir / "leakgan_ckpt")]
+        try:
+            first = run_cli(argv)
+            second = run_cli(argv)
+        finally:
+            undo()
+        for out in (first, second):
+            for line in out.splitlines():
+                if line.startswith(("pretrain", "epoch")):
+                    finite_numbers(f"[20] leakgan train, {line.split(':')[0]}", line)
+        if "resumed from step 0" not in first or "resumed from step 1" not in second:
+            fail("[20] the second leakgan train did not resume from the first's checkpoint")
+        if checkpoint.latest_step(work_dir / "leakgan_ckpt") != 1:
+            fail("[20] no checkpoint at step 1")
+        ltr = records["LeakGanTrainer"]
+        tc = ltr.tc
+        rows = lambda key: ", ".join(f"{s:.3f}" for s in records[key])
+        print(f"[20] leakgan train twice (resumed), shipped width (V={tc.cfg.vocab_size}, "
+              f"G={tc.cfg.goal_out_size}, goal {tc.cfg.goal_size}, H={tc.cfg.worker_hidden}, "
+              f"T={tc.cfg.seq_len}, step {tc.cfg.step_size}, batch {tc.batch_size}, rollout "
+              f"{tc.rollout_num}) on {len(corpus)} oracle sequences: pre epochs "
+              f"{rows('LeakGanTrainer.pretrain_generator')} s, D epochs (negatives "
+              f"included) {rows('LeakGanTrainer.pretrain_discriminator')} s, adv steps "
+              f"{rows('LeakGanTrainer.adv_step')} s  [{card}]", flush=True)
+
+        print(f"    (phase 20 at {time.perf_counter() - t_phase:.1f} s)", flush=True)
+        # get_rewards alone, 1,024 streams
+        lgen = torch.Generator(device=dev).manual_seed(20)
+        cfg_l = tc.cfg
+        x = lg.gen_samples(ltr.g_params, ltr.d_params, tc.batch_size, cfg=cfg_l, generator=lgen)
+        rew = lambda: lg.get_rewards(ltr.g_params, ltr.d_params, x, cfg=cfg_l,
+                                     rollout_num=tc.rollout_num, generator=lgen)
+        rew()
+        sync(dev)
+        reset_peak()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            r = rew()
+        sync(dev)
+        rew_ms = (time.perf_counter() - t0) / 3 * 1e3
+        if r.shape != (tc.batch_size, cfg_l.n_goals) or not torch.isfinite(r).all():
+            fail(f"[20] get_rewards {tuple(r.shape)}")
+        rew_peak = peak()
+        reset_peak()
+        wall, busy, share = device_busy_share(dev, lambda: ltr.adv_step(generator=lgen))
+        adv_peak = peak()
+        n_l = tc.rollout_num * cfg_l.n_goals * tc.batch_size
+        print(f"[20] get_rewards, {n_l} streams: {rew_ms:.1f} ms (mean of 3, peak memory "
+              f"{rew_peak}); an adv step {busy_line(wall, busy, share)}, peak memory "
+              f"{adv_peak}  [{card}]", flush=True)
+        pre_batch = torch.from_numpy(corpus[:tc.batch_size]).long().to(dev)
+        wall, busy, share = device_busy_share(dev, lambda: ltr.pre_step(
+            pre_batch, generator=lgen, dropout_generator=lgen))
+        print(f"[20] a pre step: {busy_line(wall, busy, share)}  [{card}]", flush=True)
+
+        print(f"    (phase 20 at {time.perf_counter() - t_phase:.1f} s)", flush=True)
+        # card against CPU at the tiny config: get_rewards, one adv step, eval_nll
+        tiny_l = leakgan_train.LeakGanTrainConfig(
+            cfg=lg.LeakGanConfig(vocab_size=40, seq_len=10, step_size=5, goal_size=4,
+                                 worker_emb_dim=8, worker_hidden=8, manager_hidden=8,
+                                 dis_emb_dim=8, filter_sizes=(1, 2, 3), num_filters=(8, 8, 16)),
+            batch_size=4, rollout_num=3)
+        pair = [leakgan_train.LeakGanTrainer(tiny_l, seed=20, device=d) for d in ("cpu", dev)]
+        noise_gen = torch.Generator().manual_seed(200)
+        n_t = 3 * 2 * 4
+        toks = torch.randint(0, 40, (4, 10), generator=noise_gen)
+        r_noise = gumbel_noise(noise_gen, (10, n_t, 40))
+        rewards = [lg.get_rewards(t.g_params, t.d_params, toks.to(t.device), cfg=tiny_l.cfg,
+                                  rollout_num=3, noise=r_noise).cpu() for t in pair]
+        err_r = float((rewards[0] - rewards[1]).abs().max())
+        if err_r > 1e-5:
+            fail(f"[20] get_rewards on the card and the CPU differ by {err_r:.3g}")
+        adv_noise = gumbel_noise(noise_gen, (11, 4, 40))
+        mask = torch.rand((11, 4, 32), generator=noise_gen) < 0.8
+        losses = [t.adv_step(adv_noise=adv_noise, rollout_noise=r_noise, dropout_mask=mask)
+                  for t in pair]
+        err_p = tree_close("[20] adv_step params", pair[1].g_params, pair[0].g_params, 1e-5)
+        err_o = tree_close("[20] adv_step Adam states", (pair[1].m_opt, pair[1].w_opt),
+                           (pair[0].m_opt, pair[0].w_opt), 1e-5)
+        data = torch.randint(0, 40, (8, 10), generator=noise_gen).numpy()
+        e_noise = [gumbel_noise(noise_gen, (11, 4, 40)) for _ in range(2)]
+        nll = [t.eval_nll(data, noise=e_noise) for t in pair]
+        if abs(nll[0] - nll[1]) > 1e-5 or not np.isfinite([*map(float, losses[1]), *nll]).all():
+            fail(f"[20] eval_nll card {nll[1]} vs CPU {nll[0]}")
+        print(f"[20] tiny config, card vs CPU on the same weights, noise and masks: "
+              f"get_rewards within {err_r:.2g}, adv_step params within {err_p:.2g} and Adam "
+              f"states within {err_o:.2g} of their scale (tolerance 1e-5), eval_nll "
+              f"{nll[1]:.6f} vs {nll[0]:.6f}", flush=True)
+        seconds["20"] = time.perf_counter() - t_phase
+    finally:
+        os.chdir(cwd)
+    print(f"[20] the GAN phases 19-20 took {sum(seconds.values()):.1f} s ("
+          + ", ".join(f"{k}: {v:.1f} s" for k, v in seconds.items()) + ")", flush=True)
+    return seconds
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not (ROOT / "music_tpu_torch").is_dir():
@@ -289,12 +677,28 @@ def main() -> None:
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}", flush=True)
 
-    # -- 2. build every kernel, one nvcc per source, all at once
+    # -- 2. build every kernel, one nvcc per source, all at once; meanwhile
+    # start torch.profiler (its first use starts CUPTI, ~10 s on the H100
+    # host), which phases 19-20 use for the device's busy share
     t0 = time.perf_counter()
-    _build.build([*KERNELS, PROBE])
+    built = {}
+
+    def build():  # nvcc's subprocesses, waited on by a thread of their own
+        try:
+            _build.build([*KERNELS, PROBE])
+        except BaseException as e:  # re-raised by the main thread
+            built["error"] = e
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
+    profiler_s = start_profiler()  # in the main thread, which profiles later
+    build_thread.join()
+    if "error" in built:
+        raise built["error"]
     for module in (dec, aedec, hbm, aehbm):
         module._library()
-    print(f"[2] built {len(KERNELS) + 1} libraries in {time.perf_counter() - t0:.1f} s")
+    print(f"[2] built {len(KERNELS) + 1} libraries in {time.perf_counter() - t0:.1f} s; "
+          f"torch.profiler started beside them in {profiler_s:.1f} s")
     for name in (*KERNELS, PROBE):
         lib_path = _build.library_path(name)
         built = _build.BUILD_SECONDS.get(name)
@@ -466,7 +870,7 @@ def main() -> None:
                              n_stream_groups=-(-rows // S), dtype=dtype, sample_mode=mode)
         kw = dict(cfg=full, dtype=dtype, sample_mode=mode)
         ker = timed(lambda n: dec.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
-                    TIMED_STEPS, 3)
+                    TIMED_STEPS, TIMED_REPS)
         plain = timed(lambda n: dec.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS, 1)
         times[label] = (ker, plain)
         # one launch of TIMED_STEPS steps reads every input once (weights,
@@ -649,7 +1053,7 @@ def main() -> None:
                                n_stream_groups=G)
         kw = dict(cfg=ae_full, dtype=torch.float32)
         ker = timed(lambda n: aedec.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
-                    TIMED_STEPS, 3)
+                    TIMED_STEPS, TIMED_REPS)
         plain = timed(lambda n: aedec.decode_reference(*inputs, n_steps=n, **kw),
                       PLAIN_STEPS, 1)
         ae_times[label] = (ker, plain)
@@ -1006,7 +1410,7 @@ def main() -> None:
                              dtype=dtype, weight_dtype=wd, int8_matmul=q8, sample_mode=mode)
         kw = dict(cfg=scaled, dtype=dtype, int8_matmul=q8, sample_mode=mode)
         ker = timed(lambda n: hbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
-                    TIMED_STEPS, 3)
+                    TIMED_STEPS, TIMED_REPS)
         plain = None if rows > 32 else timed(
             lambda n: hbm.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0 = inputs
@@ -1032,7 +1436,7 @@ def main() -> None:
                                n_stream_groups=G, weight_dtype=wd)
         kw = dict(cfg=ae_scaled, dtype=f32)
         ker = timed(lambda n: aehbm.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
-                    TIMED_STEPS, 3)
+                    TIMED_STEPS, TIMED_REPS)
         plain = None if rows > n_clips else timed(
             lambda n: aehbm.decode_reference(*inputs, n_steps=n, **kw), PLAIN_STEPS_SCALED, 1)
         w, ring, s0, prev0, cond_fg, cond_post, pos0 = inputs
@@ -1077,7 +1481,7 @@ def main() -> None:
             toks = mod.decode_cuda(*inputs, n_steps=512, n_streams=S, **kw)[:rows]
             check(f"[14] {name} at the {label}, 512 steps", toks, model_fn, TOL_F32)
         ker = timed(lambda n: mod.decode_cuda(*inputs, n_steps=n, n_streams=S, **kw),
-                    TIMED_STEPS, 3)
+                    TIMED_STEPS, TIMED_REPS)
         resident, streaming = (dec, hbm) if mod in (dec, hbm) else (aedec, aehbm)
         names = ("B3", "B4") if resident is aedec else ("B1", "B2")
         pick = names[streams_weights(rows, dev, resident, streaming, cfg_, dtype)]
@@ -1443,20 +1847,29 @@ def main() -> None:
         new_phase_s["18"] = time.perf_counter() - t0
     print(f"[18] the train and serve phases 16-18 took {time.perf_counter() - t_new:.1f} s ("
           + ", ".join(f"{k}: {v:.1f} s" for k, v in new_phase_s.items()) + ")", flush=True)
+
+    # -- 19-20. SeqGAN and LeakGAN at the shipped widths (no decode kernel
+    # lies on their paths: the counts of the kernels line stay as 4-18 left them)
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, full_fp32():
+        gan_phases(card, dev, Path(tmp))
+    if dec.LAUNCHES or aedec.LAUNCHES or hbm.LAUNCHES or aehbm.LAUNCHES:
+        fail("[20] the GAN phases launched a decode kernel")
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 19. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 21. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
-    # PyTorch call computes any of the decodes)
+    # PyTorch call computes any of the decodes; the GAN phases 19-20 launch
+    # none of them)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
-    print(f"[19] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"[21] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

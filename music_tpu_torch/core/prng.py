@@ -29,8 +29,12 @@ class KeySeq:
     def __next__(self) -> torch.Generator:
         return torch.Generator().manual_seed(self.next_seed())
 
-    def next(self) -> torch.Generator:
-        return next(self)
+    def next(self, device: torch.device | str | None = None) -> torch.Generator:
+        """The next generator, on ``device`` (default the CPU): a draw on a
+        CUDA device needs a generator of that device."""
+        if device is None or torch.device(device).type == "cpu":
+            return next(self)
+        return torch.Generator(device=device).manual_seed(self.next_seed())
 
     def take(self, n: int) -> list[torch.Generator]:
         return [next(self) for _ in range(n)]

@@ -26,8 +26,14 @@ def categorical(
     return out.reshape(probs.shape[:-1]).to(torch.int32)
 
 
+def gumbel_noise(generator: torch.Generator | None, shape, device=None) -> torch.Tensor:
+    """Standard Gumbel draws ``-log(-log(u))``, ``u`` uniform on ``device``
+    (a CUDA device needs a CUDA generator)."""
+    u = torch.rand(shape, generator=generator, device=device).clamp_min(1e-20)
+    return -torch.log(-torch.log(u))
+
+
 def gumbel_argmax(generator: torch.Generator | None, logits: torch.Tensor) -> torch.Tensor:
     """Categorical sampling by Gumbel-max: one uniform draw and an argmax."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    u = u.clamp_min(1e-20)
-    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    return torch.argmax(logits + gumbel_noise(generator, logits.shape, logits.device),
+                        dim=-1).to(torch.int32)

@@ -63,13 +63,9 @@ def step_fn(loss_fn: Callable, tx: optim.GradientTransformation):
     ``loss_fn(params, tokens)`` and one optimizer update."""
 
     def train_step(state: TrainState, tokens: torch.Tensor):
-        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        loss = loss_fn(params, tokens)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state, state.params)
-            new_params = optim.apply_updates(state.params, updates)
-        return TrainState(new_params, opt_state, state.step + 1), loss.detach()
+        params, opt_state, loss = optim.grad_update(
+            tx, state.params, state.opt_state, lambda p: loss_fn(p, tokens))
+        return TrainState(params, opt_state, state.step + 1), loss
 
     return train_step
 

@@ -1,6 +1,7 @@
 """The port stands on its own: it imports neither jax nor anything of
 music_tpu, its copies of the JAX package's jax-free pieces (params JSONs,
-the µ-law table, JSON loading, wav I/O) equal the originals, its host
+the µ-law table, the token-corpus module, JSON loading, wav I/O) equal the
+originals, its host
 µ-law encode matches the JAX package's, and its entry points run on CUDA
 unless the caller asks for the CPU."""
 
@@ -24,12 +25,15 @@ from music_tpu_torch.generate import wavenet_generate as wngen
 from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.mulaw import mu_law_encode
+from music_tpu_torch.train import leakgan_train as lgtrain
+from music_tpu_torch.train import seqgan_train as sgtrain
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "music_tpu_torch"
 COPIES = sorted(
     str(p.relative_to(PORT))
-    for p in [*PORT.glob("params/**/*.json"), *PORT.glob("ops/*.npy")]
+    for p in [*PORT.glob("params/**/*.json"), *PORT.glob("ops/*.npy"),
+              PORT / "data" / "tokens.py"]
 )
 
 
@@ -77,7 +81,11 @@ def test_copied_file_equals_the_jax_packages(rel):
 
 def test_copies_cover_the_ported_families():
     assert COPIES == [
+        "data/tokens.py",
         "ops/_mulaw_decode_q256.npy",
+        "params/leak_gan/leak_gan_params.json",
+        "params/leak_gan/train_params.json",
+        "params/seqgan/params.json",
         "params/wavenet/dataset_params.json",
         "params/wavenet/train_params.json",
         "params/wavenet/wavenet_params.json",
@@ -87,7 +95,7 @@ def test_copies_cover_the_ported_families():
     ]
 
 
-@pytest.mark.parametrize("family", ["wavenet", "wavenet_autoencoder"])
+@pytest.mark.parametrize("family", ["wavenet", "wavenet_autoencoder", "seqgan", "leak_gan"])
 def test_load_params_dir_matches_jax(family):
     ours = tconfig.load_params_dir(PORT / "params" / family)
     assert ours == jconfig.load_params_dir(REPO / "music_tpu" / "params" / family)
@@ -170,7 +178,17 @@ ENTRY_POINTS = {
     "CLI wavenet-ae": lambda tmp: cli.main(
         ["wavenet-ae", "generate", "--checkpoint", str(tmp / "none"), "--source",
          str(tmp / "x.wav"), "--out", str(tmp / "y.wav")]),
+    "SeqGanTrainer": lambda tmp: sgtrain.SeqGanTrainer(sgtrain.SeqGanConfig()),
+    "LeakGanTrainer": lambda tmp: lgtrain.LeakGanTrainer(lgtrain.LeakGanTrainConfig()),
+    "CLI seqgan": lambda tmp: cli.main(["seqgan", "train"]),
+    "CLI leakgan": lambda tmp: cli.main(
+        ["leakgan", "train", "--corpus", str(_corpus(tmp)), "--checkpoint", str(tmp / "ck")]),
 }
+
+
+def _corpus(tmp):
+    np.save(tmp / "corpus.npy", np.ones((64, 20), np.int64))
+    return tmp / "corpus.npy"
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -181,4 +199,4 @@ def test_entry_points_default_to_cuda(name, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ENTRY_POINTS[name](tmp_path)
-    assert not (tmp_path / "x.wav").exists()
+    assert not (tmp_path / "x.wav").exists() and not (tmp_path / "ck").exists()
