@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build all four CUDA kernels and the L2 read probe from
    ``music_tpu_torch/csrc/`` (one nvcc per source, started together), and
-   meanwhile start ``torch.profiler`` (CUPTI) for phases 19-20;
+   meanwhile start ``torch.profiler`` (CUPTI) for phases 19-21;
 
 WaveNet (kernel ``wavenet_decode``):
 
@@ -65,7 +65,7 @@ int8 modes the weight-streaming body:
     against the f32 model, the first 4 of the 272; bf16 against its plain
     version and against the f32 model);
 11. the int8 modes at the scaled width (int8 weights with 1 f32 and 32
-    bf16 streams, int8 products with 32 bf16 streams): 512 steps tie-aware
+    bf16 streams, int8 products with 32 bf16 streams): 256 steps tie-aware
     against the plain version teacher-forced, and each mode's agreement
     with the f32 model printed;
 12. the autoencoder kernel against its plain version at the tiny config
@@ -134,7 +134,22 @@ float32 matmuls in full float32):
     share and peak memory, a pre step's busy share; then at the tiny
     config ``get_rewards``, one adv step and ``eval_nll`` on the card and
     the CPU from the same weights, noise and dropout masks (within 1e-5);
-21. a JSON line describing each kernel (times in ms per decode step, with
+C-RNN-GAN at the shipped width (no decode kernel on its path; float32
+matmuls in full float32):
+
+21. a corpus of 32 songs written from a seed (2 genres x 2 composers,
+    120-200 notes each); ``crnngan train`` (``params/c_rnn_gan``: H = 350,
+    noise 100, T = 100, batch 4, conditioned) with the epochs cut to 1
+    pretrain and 2 GAN epochs; ``crnngan generate`` from its checkpoint,
+    read back as 100 notes; ms a pretrain and a GAN step, how many GAN
+    steps trained or froze D and took feature matching or the adversarial
+    loss, a step's device busy share and peak memory, the pretrain loss's
+    forward / backward / optimizer shares (``utils.profiling``); then at a
+    tiny config a pretrain and a GAN step on the card and the CPU from the
+    same weights and noise in four gate branches (D trained and frozen, G
+    by feature matching and adversarially): losses, params and Adam states
+    within 1e-5;
+22. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
     launches counted over the main-path phases 4, 7, 10, 13, 17 and 18),
     then the device JSON as the last line.
@@ -175,6 +190,7 @@ PROBE_REPS = 10  # passes over the array in the timed launch of the L2 probe
 PLAIN_STEPS_SCALED = 64  # the plain versions take 5-50 ms a step at the scaled width
 TRAIN_STEPS = 5  # trainer steps timed at the shipped width, per dtype
 SESSION_STEPS = 4096  # steps a session call, the sessions' default
+INT8_STEPS = 256  # phase 11's decodes: the int8-product plain version takes ~38 ms a step
 KERNELS = ("wavenet_decode", "wavenet_ae_decode", "wavenet_decode_hbm", "wavenet_ae_decode_hbm")
 PROBE = "l2_probe"  # csrc/l2_probe.cu: one block's L2 read rate, built with the kernels
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM bytes/s, and
@@ -296,8 +312,9 @@ def start_profiler() -> float:
 
 def timing_wrappers(dev, classes_methods: list[tuple[type, str]]):
     """Wrap each ``cls.method`` to record its seconds (device synchronised
-    before and after) under ``"Cls.method"``, and the last instance under
-    ``"Cls"``; returns ``(records, undo)``."""
+    before and after) under ``"Cls.method"``, its results under ``"Cls.method
+    out"`` and the last instance under ``"Cls"``; returns ``(records,
+    undo)``."""
     records: dict = {}
     originals = []
     for cls, name in classes_methods:
@@ -310,6 +327,7 @@ def timing_wrappers(dev, classes_methods: list[tuple[type, str]]):
             out = _orig(self, *args, **kwargs)
             sync(dev)
             records.setdefault(_key, []).append(time.perf_counter() - t0)
+            records.setdefault(f"{_key} out", []).append(out)
             records[type(self).__name__] = self
             return out
 
@@ -338,11 +356,13 @@ def device_busy_share(dev, fn) -> tuple[float, float, float | None]:
     wall = time.perf_counter() - t0
     if dev.type != "cuda":
         return wall, 0.0, None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         sync(dev)
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) * 1e-6
+    # the raw device events: summed in milliseconds, where building
+    # prof.events() takes seconds for a step of ~30k launches
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) * 1e-9
     return wall, busy, (busy / wall if busy > 0 else None)
 
 
@@ -378,18 +398,67 @@ def tree_close(name: str, ours, theirs, rel: float) -> float:
     return worst
 
 
+FLOATS = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan|inf")
+
+
+def run_cli(dev, argv: list[str]) -> str:
+    """The port's CLI on ``dev``, its output echoed with its wall and returned."""
+    import contextlib
+    import io
+
+    from music_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main([*argv, "--device", dev.type])
+    sync(dev)
+    print("".join(f"    {line}\n" for line in buf.getvalue().splitlines())
+          + f"    ({' '.join(argv[:2])}: {time.perf_counter() - t0:.1f} s)", flush=True)
+    return buf.getvalue()
+
+
+def finite_numbers(label: str, out: str) -> list[float]:
+    """The numbers after the first colon of a CLI line; all finite."""
+    import numpy as np
+
+    nums = [float(x) for x in FLOATS.findall(out.split(":", 1)[-1])]
+    if not nums or not np.all(np.isfinite(nums)):
+        fail(f"{label}: a loss is not finite: {out.strip()}")
+    return nums
+
+
+def reset_peak(dev) -> int:
+    """Reset the card's peak-memory count; the bytes allocated now."""
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak(dev, base: int | None = None) -> str:
+    """The peak allocated since :func:`reset_peak`, and with ``base`` (what
+    it returned) the part above what earlier phases still hold."""
+    import torch
+
+    n = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    if not n:
+        return "not measured"
+    return f"{n / 2**20:.0f} MiB" + (
+        "" if base is None else f" ({(n - base) / 2**20:.0f} MiB above the start)")
+
+
 def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) -> dict:
     """Phases 19 (SeqGAN) and 20 (LeakGAN) at the widths of ``params_root``
     (default the shipped params), in ``work_dir``; returns the seconds each
     took.  They launch none of the decode kernels."""
-    import contextlib
-    import io
     import os
 
     import numpy as np
     import torch
 
-    from music_tpu_torch import cli
     from music_tpu_torch.core import checkpoint
     from music_tpu_torch.core.config import load_params_dir
     from music_tpu_torch.models import leakgan as lg
@@ -402,33 +471,6 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
     if torch.backends.cuda.matmul.allow_tf32:
         fail("[19] TF32 matmuls are on: the GAN phases hold float32 parity")
     seconds = {}
-    floats = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?|nan|inf")
-
-    def run_cli(argv: list[str]) -> str:
-        """The CLI in ``work_dir``, its output echoed with its wall and returned."""
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            cli.main([*argv, "--device", dev.type])
-        sync(dev)
-        print("".join(f"    {line}\n" for line in buf.getvalue().splitlines())
-              + f"    ({' '.join(argv[:2])}: {time.perf_counter() - t0:.1f} s)", flush=True)
-        return buf.getvalue()
-
-    def finite_numbers(label: str, out: str) -> list[float]:
-        nums = [float(x) for x in floats.findall(out.split(":", 1)[-1])]
-        if not nums or not np.all(np.isfinite(nums)):
-            fail(f"{label}: a loss is not finite: {out.strip()}")
-        return nums
-
-    def reset_peak() -> None:
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-
-    def peak() -> str:
-        n = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
-        return f"{n / 2**20:.0f} MiB" if n else "not measured"
-
     cwd = os.getcwd()
     os.chdir(work_dir)
     try:
@@ -440,7 +482,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
             (seqgan_train.SeqGanTrainer, "pg_step"),
             (seqgan_train.SeqGanTrainer, "train_discriminator")])
         try:
-            out = run_cli(["seqgan", "train", "--params-dir", str(params_root / "seqgan")])
+            out = run_cli(dev, ["seqgan", "train", "--params-dir", str(params_root / "seqgan")])
         finally:
             undo()
         for line in out.splitlines():
@@ -473,7 +515,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
                                           generator=gen)
         roll()
         sync(dev)
-        reset_peak()
+        reset_peak(dev)
         t0 = time.perf_counter()
         for _ in range(3):
             rewards = roll()
@@ -482,10 +524,10 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
         if rewards.shape != (cfg.batch_size, cfg.g.seq_len) or not torch.isfinite(rewards).all():
             fail(f"[19] rollout rewards {tuple(rewards.shape)}, finite "
                  f"{bool(torch.isfinite(rewards).all())}")
-        roll_peak = peak()
-        reset_peak()
+        roll_peak = peak(dev)
+        reset_peak(dev)
         wall, busy, share = device_busy_share(dev, lambda: tr.pg_step(generator=gen))
-        pg_peak = peak()
+        pg_peak = peak(dev)
         print(f"[19] rollout_rewards, {n_streams} streams: {roll_ms:.1f} ms (mean of 3, "
               f"peak memory {roll_peak}); a PG step {busy_line(wall, busy, share)}, peak "
               f"memory {pg_peak}  [{card}]", flush=True)
@@ -542,8 +584,8 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
         argv = ["leakgan", "train", "--params-dir", str(params_root / "leak_gan"), "--corpus",
                 str(work_dir / "corpus.npy"), "--checkpoint", str(work_dir / "leakgan_ckpt")]
         try:
-            first = run_cli(argv)
-            second = run_cli(argv)
+            first = run_cli(dev, argv)
+            second = run_cli(dev, argv)
         finally:
             undo()
         for out in (first, second):
@@ -574,7 +616,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
                                      rollout_num=tc.rollout_num, generator=lgen)
         rew()
         sync(dev)
-        reset_peak()
+        reset_peak(dev)
         t0 = time.perf_counter()
         for _ in range(3):
             r = rew()
@@ -582,10 +624,10 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
         rew_ms = (time.perf_counter() - t0) / 3 * 1e3
         if r.shape != (tc.batch_size, cfg_l.n_goals) or not torch.isfinite(r).all():
             fail(f"[20] get_rewards {tuple(r.shape)}")
-        rew_peak = peak()
-        reset_peak()
+        rew_peak = peak(dev)
+        reset_peak(dev)
         wall, busy, share = device_busy_share(dev, lambda: ltr.adv_step(generator=lgen))
-        adv_peak = peak()
+        adv_peak = peak(dev)
         n_l = tc.rollout_num * cfg_l.n_goals * tc.batch_size
         print(f"[20] get_rewards, {n_l} streams: {rew_ms:.1f} ms (mean of 3, peak memory "
               f"{rew_peak}); an adv step {busy_line(wall, busy, share)}, peak memory "
@@ -636,6 +678,152 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
     return seconds
 
 
+def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = None) -> float:
+    """Phase 21, C-RNN-GAN at the widths of ``params_root`` (default the
+    shipped params), in ``work_dir``; returns its seconds.  It launches
+    none of the decode kernels."""
+    import numpy as np
+    import torch
+
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.data import midi
+    from music_tpu_torch.models import crnngan as cg
+    from music_tpu_torch.train import crnngan_train as ct
+    from music_tpu_torch.utils.profiling import phase_fractions
+
+    params_root = params_root or ROOT / "music_tpu_torch" / "params"
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("[21] TF32 matmuls are on: the C-RNN-GAN phase holds float32 parity")
+    t_phase = time.perf_counter()
+    # a corpus of 32 songs from a seed, 2 genres x 2 composers (meta_dim 4),
+    # 120-200 notes each (the real corpus is not in the repository)
+    rng = np.random.default_rng(21)
+    for i in range(32):
+        n = int(rng.integers(120, 201))
+        events = np.stack([rng.choice([0, 48, 96, 192], n), rng.integers(48, 384, n),
+                           [midi.tone_to_freq(t) for t in rng.integers(36, 96, n)],
+                           rng.integers(40, 120, n)], axis=1)
+        midi.events_to_midi(events, work_dir / "midi" / f"genre{i % 2}" /
+                            f"composer{i // 2 % 2}" / f"song{i:02d}.mid")
+    # the shipped widths; only the epochs cut
+    shipped = load_params_dir(params_root / "c_rnn_gan")
+    params_dir = work_dir / "params"
+    params_dir.mkdir()
+    cuts = {"pretrain_epochs": 1, "num_epochs": 2}
+    for name, cfg_json in (
+            ("crnngan_params", shipped["crnngan_params"]),
+            ("dataset_params", {**shipped["dataset_params"], "root_dir": str(work_dir / "midi")}),
+            ("train_params", {**shipped["train_params"], **cuts})):
+        (params_dir / f"{name}.json").write_text(json.dumps(cfg_json))
+    cfg = cg.CRnnGanConfig.from_json(shipped["crnngan_params"])
+    batch = shipped["dataset_params"]["batch_size"]
+    print(f"[21] crnngan train at its params' widths (H={cfg.hidden_dim}, noise "
+          f"{cfg.noise_dim}, T={cfg.song_length}, batch {batch}, {cfg.num_song_features} "
+          "features, conditioned); cut: " + ", ".join(
+              f"{k} {shipped['train_params'][k]} -> {v}" for k, v in cuts.items()), flush=True)
+    ckpt = work_dir / "crnngan_ckpt"
+    records, undo = timing_wrappers(dev, [(ct.CRnnGanTrainer, "pre_step"),
+                                          (ct.CRnnGanTrainer, "gan_step")])
+    base = reset_peak(dev)
+    try:
+        out = run_cli(dev, ["crnngan", "train", "--params-dir", str(params_dir),
+                            "--checkpoint", str(ckpt)])
+    finally:
+        undo()
+    train_peak = peak(dev, base)
+    for line in out.splitlines():
+        if line.startswith(("pretrain", "epoch")):
+            finite_numbers(f"[21] crnngan train, {line.split(':')[0]}", line)
+    if "conditioning on 2 genres + 2 composers" not in out:
+        fail(f"[21] crnngan train did not condition on the corpus's 4 labels: {out!r}")
+    tr = records["CRnnGanTrainer"]
+    pre_s, gan_s = records["CRnnGanTrainer.pre_step"], records["CRnnGanTrainer.gan_step"]
+    steps = records["CRnnGanTrainer.gan_step out"]
+    if len(pre_s) != 32 // batch or len(gan_s) != 2 * 32 // batch:
+        fail(f"[21] {len(pre_s)} pretrain and {len(gan_s)} GAN steps, want "
+             f"{32 // batch} and {2 * 32 // batch}")
+    trained = sum(s.d_trained for s in steps)
+    fm = sum(s.feature_matching for s in steps)
+    ms = lambda xs: f"{1e3 * xs[0]:.1f} ms first, {1e3 * float(np.median(xs[1:])):.1f} median"
+    print(f"[21] crnngan train: {len(pre_s)} pretrain steps ({ms(pre_s)}), {len(gan_s)} GAN "
+          f"steps ({ms(gan_s)}); D trained in {trained} and frozen in {len(steps) - trained}, "
+          f"G by feature matching in {fm} and adversarially in {len(steps) - fm}; peak memory "
+          f"{train_peak}  [{card}]", flush=True)
+
+    # generation through the CLI from that checkpoint: a MIDI file of T notes
+    out_mid = work_dir / "generated.mid"
+    run_cli(dev, ["crnngan", "generate", "--params-dir", str(params_dir), "--checkpoint",
+                  str(ckpt), "--out", str(out_mid)])
+    notes = [e for e in midi.read_midi(out_mid)["tracks"][0]
+             if e[1] & 0xF0 == 0x90 and e[2][1] > 0]
+    song = np.asarray(midi.midi_to_song_data(out_mid))
+    if len(notes) != cfg.song_length or song.shape != (cfg.song_length, 4) or (
+            not np.isfinite(song).all()):
+        fail(f"[21] crnngan generate wrote {len(notes)} notes, {song.shape} events")
+    print(f"[21] crnngan generate: {len(notes)} notes read back from {out_mid.name}", flush=True)
+
+    # one step of each kind alone: busy share, peak memory; the pretrain
+    # loss's forward / backward / optimizer shares
+    data, metas = midi.load_midi_dataset(work_dir / "midi", song_length=cfg.song_length)
+    meta_all = midi.build_meta_onehots(metas)[0]
+    normed = ct.FeatureScaler(data).transform(data).astype(np.float32)
+    real = torch.from_numpy(normed[:batch]).to(dev)
+    meta = torch.from_numpy(meta_all[:batch]).to(dev)
+    busy = {}
+    for name, fn in (("pretrain", lambda: tr.pre_step(real, meta)),
+                     ("GAN", lambda: tr.gan_step(real, meta))):
+        base = reset_peak(dev)
+        busy[name] = (*device_busy_share(dev, fn), peak(dev, base))
+    noise = torch.rand((cfg.song_length, batch, cfg.noise_dim), device=dev)
+    tr_cfg = tr.tc.cfg
+    fractions = phase_fractions(
+        lambda p, b: cg.g_pretrain_loss(p, b[0], tr_cfg, b[1], noise=b[2]), tr.g_params,
+        (real, meta, noise), tr.g_tx, tr.g_opt, n_iters=5)
+    print("[21] " + "; ".join(f"a {k} step {busy_line(*v[:3])}, peak memory {v[3]}"
+                              for k, v in busy.items())
+          + "; pretrain loss phases " + ", ".join(
+              f"{k[:-5]} {100 * v:.1f}%" for k, v in fractions.items() if k.endswith("_frac"))
+          + f" of {1e3 * fractions['total_seconds']:.1f} ms  [{card}]", flush=True)
+
+    # card against CPU at a tiny config: one pretrain step and one GAN step
+    # from the same weights and noise, in each branch the gates can be forced to
+    tiny = cg.CRnnGanConfig(noise_dim=4, hidden_dim=8, song_length=6, meta_dim=3)
+    gen = torch.Generator().manual_seed(210)
+    t_real = torch.randn((4, 6, 4), generator=gen)
+    t_meta = (torch.rand((4, 3), generator=gen) > 0.5).float()
+    pre_noise, gan_noise = torch.rand((1, 6, 4, 4), generator=gen), torch.rand(
+        (3, 6, 4, 4), generator=gen)
+    worst, worst_loss = 0.0, 0.0
+    for d_too_strong in (0.0, 1.0):
+        for objective in ("fm", "adv"):
+            label = f"d_too_strong {d_too_strong}, {objective}"
+            tc = ct.CRnnGanTrainConfig(cfg=tiny, batch_size=4, d_too_strong=d_too_strong,
+                                       g_objective=objective)
+            pair = [ct.CRnnGanTrainer(tc, seed=21, device=d) for d in ("cpu", dev)]
+            results = []
+            for t in pair:
+                pre = t.pre_step(t_real.to(t.device), t_meta.to(t.device), noise=pre_noise)
+                results.append((pre, t.gan_step(t_real.to(t.device), t_meta.to(t.device),
+                                                noise=gan_noise)))
+            (pre_c, step_c), (pre_d, step_d) = results
+            if (step_c.d_trained, step_c.feature_matching) != (
+                    step_d.d_trained, step_d.feature_matching) or step_c.d_trained != (
+                    d_too_strong > 0):
+                fail(f"[21] {label}: the gates differ: CPU {step_c[3:]}, card {step_d[3:]}")
+            for a, b in ((pre_c, pre_d), *zip(step_c[:3], step_d[:3])):
+                worst_loss = max(worst_loss, abs(float(a) - float(b)))
+            if worst_loss > 1e-5:
+                fail(f"[21] {label}: losses differ by {worst_loss:.3g} between card and CPU")
+            worst = max(worst, tree_close(f"[21] {label}", pair[1].state(), pair[0].state(),
+                                          1e-5))
+    seconds = time.perf_counter() - t_phase
+    print(f"[21] tiny config, card vs CPU, a pretrain and a GAN step in 4 branches (D trained "
+          f"and frozen, G by fm and adv): losses within {worst_loss:.2g}, params and Adam "
+          f"states within {worst:.2g} of their scale (tolerance 1e-5)", flush=True)
+    print(f"[21] the C-RNN-GAN phase took {seconds:.1f} s", flush=True)
+    return seconds
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not (ROOT / "music_tpu_torch").is_dir():
@@ -667,7 +855,7 @@ def main() -> None:
     from music_tpu_torch.train import wavenet_train
     from music_tpu_torch.utils.parity import (
         ae_reference_scores, ae_teacher_forced_scores, reference_scores,
-        teacher_forced_scores, tie_aware_check,
+        teacher_forced_scores, tie_aware_check, with_decode_noise,
     )
 
     dev = torch.device("cuda")
@@ -679,7 +867,7 @@ def main() -> None:
 
     # -- 2. build every kernel, one nvcc per source, all at once; meanwhile
     # start torch.profiler (its first use starts CUPTI, ~10 s on the H100
-    # host), which phases 19-20 use for the device's busy share
+    # host), which phases 19-21 use for the device's busy share
     t0 = time.perf_counter()
     built = {}
 
@@ -745,6 +933,21 @@ def main() -> None:
         plain = reference_scores(inputs, tokens, cfg, dtype=torch.bfloat16)
         logit_error_check(name, plain, teacher_forced_scores(params, prime, tokens, cfg)[:, 1:],
                           TOL_BF16)
+
+    def bf16_categorical_checks(name, cfg, params, prime, inputs, tokens):
+        """A bf16 categorical CLI run held to its plain version (the same
+        Philox draws, at the f32 tolerance) and to the f32 model, and the
+        bf16 logit error: the plain version's and the f32 model's logits
+        along the tokens each computed once, with the decode's noise for
+        the tie-aware checks and bare for the logit error."""
+        plain = reference_scores(inputs, tokens, cfg, dtype=torch.bfloat16)
+        f32_logits = teacher_forced_scores(params, prime, tokens, cfg)
+        check(f"{name} bf16 categorical vs its plain version, first 512 steps", tokens[:, 1:],
+              lambda t: with_decode_noise(plain, 1, "categorical", 1.0, 0), TOL_F32,
+              kernel="wavenet_decode")
+        check(f"{name} bf16 categorical vs the f32 model, first 512 steps", tokens,
+              lambda t: with_decode_noise(f32_logits, 0, "categorical", 1.0, 0), TOL_BF16)
+        logit_error_check(name, plain, f32_logits[:, 1:], TOL_BF16)
 
     def timed(fn, n_steps, reps):
         fn(max(2, n_steps // 8))  # warm-up
@@ -847,13 +1050,7 @@ def main() -> None:
     s32, g32 = stream_tiling(32, dev)
     inputs = dec.prepare(fp, silence, cfg=full, n_streams=s32, n_stream_groups=g32,
                          dtype=torch.bfloat16, sample_mode="categorical")
-    check("CLI 32 streams bf16 categorical vs its plain version, first 512 steps",
-          many[:, 1:], lambda t: reference_scores(inputs, many, full, dtype=torch.bfloat16,
-                                                  sample_mode="categorical"), TOL_F32,
-          kernel="wavenet_decode")
-    check("CLI 32 streams bf16 categorical vs the f32 model, first 512 steps", many,
-          model_scores(fp, silence, full, sample_mode="categorical"), TOL_BF16)
-    bf16_logit_error("CLI 32 streams", full, fp, silence, inputs, many)
+    bf16_categorical_checks("CLI 32 streams", full, fp, silence, inputs, many)
 
     # -- 5. times at the main path's shapes
     shapes = [  # (label, CLI run, rows, dtype, mode, streams per block)
@@ -1232,15 +1429,7 @@ def main() -> None:
     many = torch.from_numpy(scaled_codes["CLI 32 streams"][:, :512]).to(dev)
     inputs = dec.prepare(sfp, s_sil[:32], cfg=scaled, n_streams=32, dtype=bf16,
                          sample_mode="categorical")
-    check("[10] scaled CLI 32 streams bf16 categorical vs its plain version, first 512 steps",
-          many[:, 1:], lambda t: reference_scores(inputs, many, scaled, dtype=bf16,
-                                                  sample_mode="categorical"),
-          TOL_F32, kernel="wavenet_decode")
-    check("[10] scaled CLI 32 streams bf16 categorical vs the f32 model, first 512 steps", many,
-          model_scores(sfp, s_sil[:32], scaled, sample_mode="categorical"), TOL_BF16)
-    logit_error_check("[10] scaled CLI 32 streams",
-                      reference_scores(inputs, many, scaled, dtype=bf16),
-                      teacher_forced_scores(sfp, s_sil[:32], many, scaled)[:, 1:], TOL_BF16)
+    bf16_categorical_checks("[10] scaled CLI 32 streams", scaled, sfp, s_sil[:32], inputs, many)
     past = torch.from_numpy(scaled_codes[f"generate_batch {n_past} f32 streams"][:4, :512])
     check(f"[10] scaled generate_batch {n_past} f32 categorical streams (the first 4) vs the f32 "
           "model, first 512 steps", past.to(dev),
@@ -1257,12 +1446,12 @@ def main() -> None:
         opts = dict(cfg=scaled, n_streams=S, n_stream_groups=G, dtype=dtype, weight_dtype=int8,
                     int8_matmul=q8)
         before = hbm.LAUNCHES
-        toks = hbm.generate_tokens_fused_hbm(sfp, rprime[:rows], n_steps=512, **opts)
+        toks = hbm.generate_tokens_fused_hbm(sfp, rprime[:rows], n_steps=INT8_STEPS, **opts)
         torch.cuda.synchronize()
         if hbm.LAUNCHES != before + 1:
             fail(f"[11] {label}: the weight-streaming kernel was not launched once")
         inputs = hbm.prepare(sfp, rprime[:rows], **opts)
-        check(f"[11] scaled {label} vs its plain version, 512 steps", toks[:, 1:],
+        check(f"[11] scaled {label} vs its plain version, {INT8_STEPS} steps", toks[:, 1:],
               lambda t, inputs=inputs, toks=toks, dtype=dtype, q8=q8: reference_scores(
                   inputs, toks, scaled, dtype=dtype, kernel=hbm, int8_matmul=q8),
               TOL_F32, kernel="wavenet_decode_hbm")
@@ -1855,21 +2044,27 @@ def main() -> None:
         gan_phases(card, dev, Path(tmp))
     if dec.LAUNCHES or aedec.LAUNCHES or hbm.LAUNCHES or aehbm.LAUNCHES:
         fail("[20] the GAN phases launched a decode kernel")
+
+    # -- 21. C-RNN-GAN at the shipped width (no decode kernel on its path)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, full_fp32():
+        crnngan_phase(card, dev, Path(tmp))
+    if dec.LAUNCHES or aedec.LAUNCHES or hbm.LAUNCHES or aehbm.LAUNCHES:
+        fail("[21] the C-RNN-GAN phase launched a decode kernel")
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 21. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 22. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
-    # PyTorch call computes any of the decodes; the GAN phases 19-20 launch
-    # none of them)
+    # PyTorch call computes any of the decodes; phases 19-21 launch none of
+    # them)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
-    print(f"[21] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"[22] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -12,8 +12,15 @@
     python -m music_tpu_torch leakgan train [--params-dir DIR] [--corpus NPY]
         [--data-dir DIR] [--checkpoint DIR] [--pretrain-g-epochs N]
         [--pretrain-d-epochs N] [--adversarial-epochs N] [--device cuda|cpu]
+    python -m music_tpu_torch crnngan train [--params-dir DIR] [--midi-dir DIR]
+        [--checkpoint DIR] [--device cuda|cpu]
+    python -m music_tpu_torch crnngan generate --checkpoint DIR [--out out.mid]
+        [--params-dir DIR] [--device cuda|cpu]
     python -m music_tpu_torch dataset build-audio --audio-dir D --out-dir D2
         [--duration S] [--sample-rate HZ]
+    python -m music_tpu_torch dataset scrape-midi --out-dir D [--sources JSON]
+        [--max-per-source N]
+    python -m music_tpu_torch vis loss --log FILE [--out loss.png]
 
 Same arguments and defaults as the ``python -m music_tpu`` commands of the
 same names, plus ``--device`` (default ``cuda``; without a CUDA device the
@@ -25,8 +32,18 @@ command fails unless ``--device cpu`` is given).  The configs are read from
 samples to ``data/seqgan/{positive,generated}.txt`` under the working
 directory; ``leakgan train`` trains on ``--corpus`` (a ``.npy`` of token
 ids) or ``--data-dir``'s ``corpus.npy``, resuming from and saving to
-``--checkpoint``.  The multi-process flags of ``wavenet train`` are accepted
-and refused: multi-process training is not ported yet.
+``--checkpoint``.  ``crnngan train`` reads ``--midi-dir`` (default the
+dataset params' ``root_dir``), laid out ``genre/composer/*.mid``,
+conditions on the genre and composer one-hots and saves to
+``--checkpoint``; ``crnngan generate`` reads the conditioning width from
+the checkpoint and writes ``--out``: normalized events clamped to the
+physical ranges, as the JAX command writes them (the feature scaler is not
+in the checkpoint).  ``dataset scrape-midi`` crawls the sources table
+(default the shipped ``params/c_rnn_gan/midi_sources.json``) into
+``--out-dir`` and writes its split lists; ``vis loss`` plots a
+``loss_log.log`` or ``metrics.jsonl`` (needs matplotlib).  The
+multi-process flags of ``wavenet train`` are accepted and refused:
+multi-process training is not ported yet.
 """
 
 from __future__ import annotations
@@ -190,13 +207,92 @@ def cmd_leakgan(args):
         tr.save(args.checkpoint, args.adversarial_epochs)
 
 
+def cmd_crnngan(args):
+    import dataclasses
+
+    import numpy as np
+
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.generate.wavenet_generate import resolve_device
+    from music_tpu_torch.models import crnngan as cg
+
+    device = resolve_device(args.device)
+    p = load_params_dir(Path(args.params_dir or PARAMS_ROOT / "c_rnn_gan"))
+    cfg = cg.CRnnGanConfig.from_json(p["crnngan_params"])
+    if args.action == "train":
+        from music_tpu_torch.data.midi import build_meta_onehots, load_midi_dataset
+        from music_tpu_torch.train.crnngan_train import (
+            CRnnGanTrainConfig, CRnnGanTrainer, FeatureScaler,
+        )
+
+        data, metas = load_midi_dataset(args.midi_dir or p["dataset_params"]["root_dir"],
+                                        song_length=cfg.song_length)
+        if len(data) == 0:
+            raise SystemExit("no MIDI files found")
+        # per-song genre/composer one-hot conditioning (c-rnn-gan/data.py:151-157)
+        meta, genres, composers = build_meta_onehots(metas)
+        cfg = dataclasses.replace(cfg, meta_dim=meta.shape[1])
+        print(f"conditioning on {len(genres)} genres + {len(composers)} composers")
+        normed = FeatureScaler(data).transform(data).astype(np.float32)
+        tr = CRnnGanTrainer(CRnnGanTrainConfig(
+            cfg=cfg, batch_size=p["dataset_params"]["batch_size"]), device=device)
+        tp = p["train_params"]
+        print("pretrain:", tr.pretrain(normed, epochs=tp["pretrain_epochs"], meta=meta))
+        for epoch in range(tp["num_epochs"]):
+            gl, dl, acc = tr.gan_epoch(normed, meta=meta)
+            print(f"epoch {epoch}: g={gl:.4f} d={dl:.4f} d_acc={acc:.2f}")
+        if args.checkpoint:
+            tr.save(args.checkpoint, tp["num_epochs"])
+        return
+    import torch
+
+    from music_tpu_torch.core import checkpoint as ckpt_lib
+    from music_tpu_torch.generate.crnngan_generate import generate
+
+    if not args.checkpoint:
+        raise SystemExit("crnngan generate requires --checkpoint")
+    # the conditioning width from the trained fc1's input width
+    in_dim = ckpt_lib.leaf_shapes(args.checkpoint, prefix="['g_params']")["['fc1']['w']"][0]
+    cfg = dataclasses.replace(
+        cfg, meta_dim=max(int(in_dim - cfg.noise_dim - cfg.num_song_features), 0))
+    example = cg.init_generator(torch.Generator().manual_seed(0), cfg, device)
+    params = ckpt_lib.restore(args.checkpoint, {"g_params": example})["g_params"]
+    generate(params, cfg, args.out, device=device)
+    print(f"wrote {args.out}")
+
+
 def cmd_dataset(args):
+    if args.action == "scrape-midi":
+        import json
+
+        from music_tpu_torch.data.midi_scraper import (
+            DEFAULT_SOURCES, download, write_split_lists,
+        )
+
+        cfg = json.loads(Path(args.sources or DEFAULT_SOURCES).read_text())
+        written = download(args.out_dir, cfg.get("sources", cfg),
+                           max_files_per_source=args.max_per_source)
+        sp = cfg.get("splits", {})
+        splits = write_split_lists(
+            args.out_dir, validation_fraction=sp.get("validation_fraction", 0.2),
+            test_fraction=sp.get("test_fraction", 0.1), seed=sp.get("seed", 0))
+        print(f"{len(written)} new files; splits: "
+              + ", ".join(f"{k}={len(v)}" for k, v in splits.items()))
+        return
     from music_tpu_torch.data.audio import build_dataset, wavs_to_pickle
 
+    if not args.audio_dir:
+        raise SystemExit("build-audio requires --audio-dir")
     pieces = build_dataset(args.audio_dir, args.out_dir, duration=args.duration,
                            sample_rate=args.sample_rate)
     pkl = wavs_to_pickle(args.out_dir, Path(args.out_dir) / "np_audio.pkl")
     print(f"{len(pieces)} pieces -> {pkl}")
+
+
+def cmd_vis(args):
+    from music_tpu_torch.utils.visualize import plot_loss
+
+    print(f"wrote {plot_loss(args.log, args.out)}")
 
 
 def main(argv=None):
@@ -253,13 +349,30 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     p.set_defaults(fn=cmd_leakgan)
 
+    p = sub.add_parser("crnngan")
+    p.add_argument("action", choices=["train", "generate"])
+    p.add_argument("--params-dir")
+    p.add_argument("--midi-dir")
+    p.add_argument("--checkpoint")
+    p.add_argument("--out", default="generated.mid")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
+    p.set_defaults(fn=cmd_crnngan)
+
     p = sub.add_parser("dataset")
-    p.add_argument("action", choices=["build-audio"])
-    p.add_argument("--audio-dir", required=True)
+    p.add_argument("action", choices=["build-audio", "scrape-midi"])
+    p.add_argument("--audio-dir")
     p.add_argument("--out-dir", required=True)
     p.add_argument("--duration", type=int, default=20)
     p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--sources", help="scrape-midi: sources JSON (default: shipped table)")
+    p.add_argument("--max-per-source", type=int, help="scrape-midi: cap per composer")
     p.set_defaults(fn=cmd_dataset)
+
+    p = sub.add_parser("vis")
+    p.add_argument("action", choices=["loss"])
+    p.add_argument("--log", required=True)
+    p.add_argument("--out", default="loss.png")
+    p.set_defaults(fn=cmd_vis)
 
     args = parser.parse_args(argv)
     args.fn(args)

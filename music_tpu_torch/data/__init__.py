@@ -1,1 +1,1 @@
-"""Audio file I/O."""
+"""Data paths: audio, token corpora, MIDI files and the MIDI scraper."""

@@ -44,11 +44,17 @@ def lstm_init(generator: torch.Generator, in_dim: int, hidden: int,
 def lstm_cell(params: dict, x: torch.Tensor, state: tuple[torch.Tensor, torch.Tensor]):
     """One LSTM step.  x: [B, In]; state: (h, c) each [B, H] -> (h', c')."""
     h, c = state
-    gates = x @ params["wi"] + h @ params["wh"] + params["bi"] + params["bh"]
-    i, f, g, o = torch.chunk(gates, 4, dim=-1)
-    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    h = torch.sigmoid(o) * torch.tanh(c)
-    return h, c
+    return lstm_update(x @ params["wi"] + h @ params["wh"] + params["bi"] + params["bh"], c)
+
+
+def lstm_update(gates: torch.Tensor, c: torch.Tensor):
+    """``(h', c')`` from the fused gates ``[..., 4H]`` (i, f, g, o) and ``c``:
+    ``c' = sig(f) c + sig(i) tanh(g)``, ``h' = sig(o) tanh(c')``, in six
+    launches (one sigmoid over all four gates, g's unused)."""
+    H = c.shape[-1]
+    s = torch.sigmoid(gates)
+    c = torch.addcmul(s[..., H:2 * H] * c, s[..., :H], torch.tanh(gates[..., 2 * H:3 * H]))
+    return s[..., 3 * H:] * torch.tanh(c), c
 
 
 def lstm_zero_state(batch: int, hidden: int, device: torch.device | str = "cpu",

@@ -1,1 +1,1 @@
-"""Utilities: parity checks."""
+"""Utilities: parity checks, loss plots, profiling."""

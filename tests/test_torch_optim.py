@@ -151,6 +151,18 @@ def test_from_config_and_refusals():
         toptim.make_optimizer("adagrad", 1.0)
 
 
+def test_jax_lbfgs_cannot_take_the_trainers_update():
+    """Why lbfgs has no port yet: the JAX trainers update by
+    ``tx.update(grads, opt_state, params)``, and optax's lbfgs (its zoom
+    linesearch) needs the loss too, so ``optimizer: "lbfgs"`` fails at the
+    first step of a JAX trainer (ROADMAP.md, section C)."""
+    tx = joptim.make_optimizer("lbfgs", 1e-3)
+    params = {"w": jnp.ones((4, 3))}
+    grads = {"w": jnp.full((4, 3), 0.5)}
+    with pytest.raises(TypeError, match="value_fn"):
+        tx.update(grads, tx.init(params), params)
+
+
 def test_restore_refuses_wrong_shapes_kinds_and_missing_leaves(tmp_path):
     state = TrainState({"w": torch.ones(2, 3)}, (toptim.EmptyState(),),
                        torch.zeros((), dtype=torch.int32))

@@ -1,7 +1,7 @@
 """The port stands on its own: it imports neither jax nor anything of
 music_tpu, its copies of the JAX package's jax-free pieces (params JSONs,
-the µ-law table, the token-corpus module, JSON loading, wav I/O) equal the
-originals, its host
+the µ-law table, the token-corpus, MIDI-scraper and loss-plot modules,
+JSON loading, wav I/O) equal the originals, its host
 µ-law encode matches the JAX package's, and its entry points run on CUDA
 unless the caller asks for the CPU."""
 
@@ -20,11 +20,14 @@ from music_tpu.data.audio import mu_law_encode_np
 from music_tpu_torch import cli
 from music_tpu_torch.core import config as tconfig
 from music_tpu_torch.data import wavio as twavio
+from music_tpu_torch.generate import crnngan_generate as cggen
 from music_tpu_torch.generate import wavenet_ae_generate as aegen
 from music_tpu_torch.generate import wavenet_generate as wngen
+from music_tpu_torch.models import crnngan as cg
 from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.mulaw import mu_law_encode
+from music_tpu_torch.train import crnngan_train as cgtrain
 from music_tpu_torch.train import leakgan_train as lgtrain
 from music_tpu_torch.train import seqgan_train as sgtrain
 
@@ -33,7 +36,8 @@ PORT = REPO / "music_tpu_torch"
 COPIES = sorted(
     str(p.relative_to(PORT))
     for p in [*PORT.glob("params/**/*.json"), *PORT.glob("ops/*.npy"),
-              PORT / "data" / "tokens.py"]
+              PORT / "data" / "tokens.py", PORT / "data" / "midi_scraper.py",
+              PORT / "utils" / "visualize.py"]
 )
 
 
@@ -81,8 +85,13 @@ def test_copied_file_equals_the_jax_packages(rel):
 
 def test_copies_cover_the_ported_families():
     assert COPIES == [
+        "data/midi_scraper.py",
         "data/tokens.py",
         "ops/_mulaw_decode_q256.npy",
+        "params/c_rnn_gan/crnngan_params.json",
+        "params/c_rnn_gan/dataset_params.json",
+        "params/c_rnn_gan/midi_sources.json",
+        "params/c_rnn_gan/train_params.json",
         "params/leak_gan/leak_gan_params.json",
         "params/leak_gan/train_params.json",
         "params/seqgan/params.json",
@@ -92,10 +101,12 @@ def test_copies_cover_the_ported_families():
         "params/wavenet_autoencoder/dataset_params.json",
         "params/wavenet_autoencoder/model_params.json",
         "params/wavenet_autoencoder/train_params.json",
+        "utils/visualize.py",
     ]
 
 
-@pytest.mark.parametrize("family", ["wavenet", "wavenet_autoencoder", "seqgan", "leak_gan"])
+@pytest.mark.parametrize("family", ["wavenet", "wavenet_autoencoder", "seqgan", "leak_gan",
+                                    "c_rnn_gan"])
 def test_load_params_dir_matches_jax(family):
     ours = tconfig.load_params_dir(PORT / "params" / family)
     assert ours == jconfig.load_params_dir(REPO / "music_tpu" / "params" / family)
@@ -183,12 +194,28 @@ ENTRY_POINTS = {
     "CLI seqgan": lambda tmp: cli.main(["seqgan", "train"]),
     "CLI leakgan": lambda tmp: cli.main(
         ["leakgan", "train", "--corpus", str(_corpus(tmp)), "--checkpoint", str(tmp / "ck")]),
+    "CRnnGanTrainer": lambda tmp: cgtrain.CRnnGanTrainer(cgtrain.CRnnGanTrainConfig()),
+    "crnngan generate": lambda tmp: cggen.generate(
+        cg.init_generator(torch.Generator().manual_seed(0), cg.CRnnGanConfig()),
+        cg.CRnnGanConfig(), tmp / "x.mid"),
+    "CLI crnngan train": lambda tmp: cli.main(
+        ["crnngan", "train", "--midi-dir", str(_midi_dir(tmp)), "--checkpoint", str(tmp / "ck")]),
+    "CLI crnngan generate": lambda tmp: cli.main(
+        ["crnngan", "generate", "--checkpoint", str(tmp / "none"), "--out", str(tmp / "x.mid")]),
 }
 
 
 def _corpus(tmp):
     np.save(tmp / "corpus.npy", np.ones((64, 20), np.int64))
     return tmp / "corpus.npy"
+
+
+def _midi_dir(tmp):
+    from music_tpu_torch.data.midi import events_to_midi
+
+    events_to_midi(np.array([[0, 96, 440.0, 80]] * 8, np.float32), tmp / "midi" / "g" / "c" /
+                   "a.mid")
+    return tmp / "midi"
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -199,4 +226,4 @@ def test_entry_points_default_to_cuda(name, tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ENTRY_POINTS[name](tmp_path)
-    assert not (tmp_path / "x.wav").exists() and not (tmp_path / "ck").exists()
+    assert not any((tmp_path / name).exists() for name in ("x.wav", "x.mid", "ck"))
