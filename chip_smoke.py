@@ -149,10 +149,24 @@ matmuls in full float32):
     same weights and noise in four gate branches (D trained and frozen, G
     by feature matching and adversarially): losses, params and Adam states
     within 1e-5;
-22. a JSON line describing each kernel (times in ms per decode step, with
+Training to a result, at the shipped width:
+
+22. the C++ host data path (``music_tpu_torch/csrc/datapath.cc``, built
+    with g++ into ``build/native/``) must build, and its window gather and
+    PCM conversions must equal numpy's; the chord quality run of
+    ``music_tpu_torch.runs.wavenet_poly_quality_run`` in process (6 chord
+    clips of 20 s, 500 bf16 steps of 8 x 16,380 codes, Adam 1e-3), its
+    16,000-step float32 decode one launch of the resident kernel, every
+    token tie-aware against the plain model, the chord's three peaks
+    required within ``3 · df + 2`` Hz; then the trainer's stacked
+    (``stack_skips``) and blocked (``skip_block=4``) skip products on the
+    trained weights against the per-layer one (window 40,000, batch 4,
+    float32: loss within 1e-6 relative, gradients within 1e-4 relative +
+    1e-6), and each variant's step in f32 and bf16;
+23. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
-    launches counted over the main-path phases 4, 7, 10, 13, 17 and 18),
-    then the device JSON as the last line.
+    launches counted over the main-path phases 4, 7, 10, 13, 17, 18 and
+    22), then the device JSON as the last line.
 
 It imports nothing of JAX.  Float32 matmuls in the plain versions run in
 full float32 (TF32 off, see ``music_tpu_torch.ops.conv.full_fp32``).
@@ -822,6 +836,167 @@ def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = Non
           f"states within {worst:.2g} of their scale (tolerance 1e-5)", flush=True)
     print(f"[21] the C-RNN-GAN phase took {seconds:.1f} s", flush=True)
     return seconds
+
+
+CHORD_STEPS = 500  # phase 22's chord run: the JAX protocol's full count
+SKIP_TOLS = dict(loss_rtol=1e-6, grad_rtol=1e-4, grad_atol=1e-6)  # tests/test_wavenet_sharded.py
+# phase 22's skip products in float32 at window 40,000, batch 4: the
+# reassociated sums over 160,000 positions put stack_skips' causal and post1
+# gradients at 1.05x and 1.00x SKIP_TOLS' element bound (H100; 0 in float64),
+# at most 7.2e-5 of each leaf's largest magnitude; so float64 is held to
+# SKIP_TOLS and float32 to 5e-4 of each leaf's largest magnitude
+SKIP_F32_LEAF_FRAC = 5e-4
+
+
+def training_phase(card: str, dev, config: str = "shipped", steps: int = CHORD_STEPS,
+                   **protocol) -> dict:
+    """Phase 22: (a) the C++ data path; (b) the chord quality run in process
+    (``runs/wavenet_poly_quality_run``'s protocol at ``config``: ``steps``
+    bf16 updates, then the routed f32 decode of ``decode_steps`` codes,
+    each tie-aware against the plain model, the chord's peaks required);
+    (c) the trainer's stacked (``stack_skips``) and blocked
+    (``skip_block=4``) skip products against the per-layer one on the
+    trained weights (loss and gradients in float32), and each variant's
+    step in f32 and bf16.  ``protocol`` overrides the run's corpus and
+    shapes (``clip_secs``, ``window``, ``batch``, ``decode_steps``,
+    ``skip_window``) for a rehearsal at a tiny config on the CPU.  Returns
+    the chord decode's tie-aware report, its launches of each kernel and
+    the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from music_tpu_torch import native
+    from music_tpu_torch.core import optim
+    from music_tpu_torch.data.audio import AudioWindows, mu_law_encode_np
+    from music_tpu_torch.kernels import wavenet_decode as dec
+    from music_tpu_torch.kernels import wavenet_decode_hbm as hbm
+    from music_tpu_torch.models import wavenet as wn
+    from music_tpu_torch.ops.conv import full_fp32
+    from music_tpu_torch.ops.mulaw import mu_law_decode
+    from music_tpu_torch.runs import wavenet_poly_quality_run as poly
+    from music_tpu_torch.train import wavenet_train
+
+    proto = {**dict(clip_secs=20.0, window=12_288, batch=8, decode_steps=poly.SR,
+                    skip_window=40_000), **protocol}
+    t_phase = time.perf_counter()
+    # -- (a) the C++ data path against numpy
+    if not native.available():
+        fail("[22] the C++ data path did not build (g++ -O3 -shared -fPIC "
+             "music_tpu_torch/csrc/datapath.cc)")
+    rng = np.random.default_rng(22)
+    data = rng.integers(0, 256, 1 << 20).astype(np.int32)
+    starts = rng.integers(0, len(data) - 4096, 64)
+    audio = rng.uniform(-1.2, 1.2, 1 << 16).astype(np.float32)
+    pcm = np.arange(-32768, 32768).astype(np.int16)
+    pairs = {
+        "gather_windows": (native.gather_windows(data, starts, 4096),
+                           data[starts[:, None] + np.arange(4096)[None, :]]),
+        "float_to_pcm16": (native.float_to_pcm16(audio),
+                           (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2")),
+        "pcm16_to_float": (native.pcm16_to_float(pcm), pcm.astype(np.float32) / 32768.0),
+    }
+    for name, (ours, ref) in pairs.items():
+        if ours.dtype != ref.dtype or not np.array_equal(ours, ref):
+            fail(f"[22] native {name} differs from numpy")
+    print(f"[22] C++ data path built ({native.library_path().name}); gather_windows, "
+          "float_to_pcm16 and pcm16_to_float equal numpy's on seeded inputs and every "
+          "16-bit value", flush=True)
+
+    # -- (b) the chord quality run, in process
+    cfg = poly.config(config)
+    q = cfg.quantization_channels
+    clips = poly.make_chord_corpus(secs=proto["clip_secs"])
+    codes = [mu_law_encode_np(c, q) for c in clips]
+    windows = AudioWindows(codes, cfg.receptive_field, proto["window"])
+    params = wn.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    state, losses = poly.train_chord(params, cfg, windows, steps=steps, batch=proto["batch"],
+                                     compute_dtype=torch.bfloat16)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    note = ("the JAX protocol's full count" if steps == CHORD_STEPS
+            else f"cut from {CHORD_STEPS}")
+    print(f"[22] chord run ({config}: {cfg.n_blocks} blocks, Cr={cfg.residual_channels}, "
+          f"Cs={cfg.skip_channels}), {steps} bf16 steps ({note}) of {proto['batch']} x "
+          f"{windows.window} codes in {train_s:.2f} s = {train_s / steps * 1e3:.1f} ms a step; "
+          f"losses every 50 steps {[round(x, 4) for x in losses]}  [{card}]", flush=True)
+    P = cfg.receptive_field + max(cfg.dilations)
+    prime = torch.from_numpy(codes[0][:P][None]).to(dev)
+    before = (dec.LAUNCHES, hbm.LAUNCHES)
+    t0 = time.perf_counter()
+    toks = poly.decode_chord(state.params, cfg, prime, proto["decode_steps"])
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    launched = {"wavenet_decode": dec.LAUNCHES - before[0],
+                "wavenet_decode_hbm": hbm.LAUNCHES - before[1]}
+    if dev.type == "cuda" and launched != {"wavenet_decode": 1, "wavenet_decode_hbm": 0}:
+        fail(f"[22] the chord decode was not one launch of B1: {launched}")
+    tie = poly.check_tokens(state.params, cfg, prime, toks)
+    print(f"    [22] chord decode, {toks.shape[1]} f32 steps, every token: tie-aware {tie}",
+          flush=True)
+    if not tie["ok"]:
+        fail(f"[22] a chord token scores {-tie['min_margin']:.3g} below the plain maximum")
+    chord = poly.judge_chord(mu_law_decode(toks[0], q).cpu().numpy())
+    print(f"[22] chord decode in {decode_s:.2f} s ({launched}); generated peaks "
+          f"{[round(p, 1) for p in chord['peaks']]} Hz against {list(poly.CHORD_HZ)}: max "
+          f"error {chord['max_err']:.2f} Hz, limit 3 x {chord['df']:.2f} + 2 = "
+          f"{3 * chord['df'] + 2:.2f} Hz", flush=True)
+    if not chord["reproduced"]:
+        fail("[22] the trained model did not reproduce the chord")
+
+    # -- (c) stacked and blocked skip products against the per-layer one
+    skip_windows = AudioWindows(codes, cfg.receptive_field, proto["skip_window"])
+    tokens = torch.from_numpy(skip_windows.gather(np.arange(4) % len(skip_windows))).to(dev)
+    variants = {"per layer": {}, "stack_skips": {"stack_skips": True},
+                "skip_block=4": {"skip_block": 4}}
+    for dtype in (torch.float64, torch.float32):
+        grads = {}
+        with full_fp32():
+            for label, k in (("per layer", 0), ("stack_skips", cfg.n_blocks),
+                             ("skip_block=4", 4)):
+                live = optim.live({n: v.to(dtype) for n, v in state.params.items()})
+                loss = wn.loss_fn(live, tokens, cfg, fuse_taps=True, skip_block=k)
+                grads[label] = (float(loss.detach()), optim.tree_grads(loss, live))
+        base_loss, base_grads = grads.pop("per layer")
+        for label, (loss, g) in grads.items():
+            if abs(loss - base_loss) > SKIP_TOLS["loss_rtol"] * abs(base_loss):
+                fail(f"[22] {label} {dtype}: loss {loss!r} against the per-layer {base_loss!r}")
+            worst_elem = worst_leaf = 0.0
+            for key, ref in base_grads.items():
+                err = (g[key] - ref).abs()
+                elem = float((err / (SKIP_TOLS["grad_atol"]
+                                     + SKIP_TOLS["grad_rtol"] * ref.abs())).max())
+                leaf = float(err.max() / ref.abs().max().clamp_min(1e-30))
+                if (elem > 1) if dtype == torch.float64 else (leaf > SKIP_F32_LEAF_FRAC):
+                    fail(f"[22] {label} {dtype}: gradient {key} off by {float(err.max()):.3g} "
+                         f"({elem:.2f}x the element bound, {leaf:.2e} of the leaf's scale)")
+                worst_elem, worst_leaf = max(worst_elem, elem), max(worst_leaf, leaf)
+            print(f"    [22] {label} vs per layer, {dtype}, window {tokens.shape[1]}: loss "
+                  f"{abs(loss - base_loss) / abs(base_loss):.2e} relative; gradients at "
+                  f"{worst_elem:.3f}x the element bound {SKIP_TOLS}, {worst_leaf:.2e} of the "
+                  "leaf's scale", flush=True)
+    del grads, base_grads
+    tx = optim.adam(1e-3)
+    for dtype_label, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        ms = {label: [] for label in variants}
+        # each variant timed twice, in the order A B C C B A
+        for label in [*variants, *reversed(variants)]:
+            step_fn = wavenet_train.make_train_step(cfg, tx, cd, **variants[label])
+            st, _ = step_fn(state, tokens)  # warm-up
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                st, _ = step_fn(st, tokens)
+            sync(dev)
+            ms[label].append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+        print(f"[22] trainer step, batch 4 x {tokens.shape[1]}, {dtype_label} (mean of "
+              f"{TRAIN_STEPS}, twice in the order A B C C B A): "
+              + ", ".join(f"{label} {a:.1f} and {b:.1f} ms" for label, (a, b) in ms.items())
+              + f"  [{card}]", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[22] the training phase took {seconds:.1f} s", flush=True)
+    return {"tie": tie, "launched": launched, "seconds": seconds}
 
 
 def main() -> None:
@@ -2050,21 +2225,29 @@ def main() -> None:
         crnngan_phase(card, dev, Path(tmp))
     if dec.LAUNCHES or aedec.LAUNCHES or hbm.LAUNCHES or aehbm.LAUNCHES:
         fail("[21] the C-RNN-GAN phase launched a decode kernel")
+
+    # -- 22. the C++ data path, the chord quality run (its decode on B1, a
+    # main-path launch) and the stacked and blocked skip products
+    reset_counts()
+    trained = training_phase(card, dev)
+    main_path_launches["wavenet_decode"] += trained["launched"]["wavenet_decode"]
+    worst_deficit["wavenet_decode"] = max(worst_deficit["wavenet_decode"],
+                                          -trained["tie"]["min_margin"])
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 22. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 23. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
     # PyTorch call computes any of the decodes; phases 19-21 launch none of
-    # them)
+    # them, phase 22 one of B1)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
-    print(f"[22] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"[23] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -41,7 +41,8 @@ physical ranges, as the JAX command writes them (the feature scaler is not
 in the checkpoint).  ``dataset scrape-midi`` crawls the sources table
 (default the shipped ``params/c_rnn_gan/midi_sources.json``) into
 ``--out-dir`` and writes its split lists; ``vis loss`` plots a
-``loss_log.log`` or ``metrics.jsonl`` (needs matplotlib).  The
+``loss_log.log`` or ``metrics.jsonl`` with matplotlib, or on a host
+without it draws the curve alone with numpy (``utils/loss_png.py``).  The
 multi-process flags of ``wavenet train`` are accepted and refused:
 multi-process training is not ported yet.
 """
@@ -290,6 +291,14 @@ def cmd_dataset(args):
 
 
 def cmd_vis(args):
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        from music_tpu_torch.utils.loss_png import plot_loss_png
+
+        print(f"wrote {plot_loss_png(args.log, args.out)} (matplotlib is not installed: the "
+              "curve alone, drawn by utils/loss_png.py)")
+        return
     from music_tpu_torch.utils.visualize import plot_loss
 
     print(f"wrote {plot_loss(args.log, args.out)}")

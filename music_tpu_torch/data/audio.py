@@ -10,8 +10,10 @@ Counterpart of :mod:`music_tpu.data.audio`:
   concatenated codes, with the same window starts and, from the same seed,
   the same batch order as the JAX package's.
 
-Host-side numpy throughout; the windows go to the device as int32 tokens
-and the model embeds them there.
+The host's µ-law encode and window gather run in C++
+(:mod:`music_tpu_torch.native`) when its library builds, numpy otherwise,
+as the JAX package's do; the windows go to the device as int32 tokens and
+the model embeds them there.
 """
 
 from __future__ import annotations
@@ -22,18 +24,15 @@ from typing import Iterator
 
 import numpy as np
 
+from music_tpu_torch import native
 from music_tpu_torch.data import wavio
 
 
 def mu_law_encode_np(audio: np.ndarray, quantization_channels: int = 256) -> np.ndarray:
-    """Host µ-law encode in numpy float32 arithmetic: the JAX package's
-    host formula, which gives its codes on every 16-bit PCM value."""
-    audio = np.ascontiguousarray(audio, np.float32)
-    mu = np.float32(quantization_channels - 1)
-    safe_abs = np.abs(np.clip(audio, -1.0, 1.0))
-    magnitude = np.log1p(mu * safe_abs) / np.log1p(mu)
-    signal = np.sign(audio) * magnitude
-    return ((signal + 1) / 2 * mu + 0.5).astype(np.int32)
+    """Host µ-law encode in float32 arithmetic: the C++ encode when built,
+    numpy otherwise (:func:`music_tpu_torch.native.mulaw_encode`), as the
+    JAX package's host encode."""
+    return native.mulaw_encode(audio, quantization_channels)
 
 
 def build_dataset(
@@ -135,9 +134,9 @@ class AudioWindows:
         return len(self.starts)
 
     def gather(self, idx: np.ndarray) -> np.ndarray:
-        """Windows ``[len(idx), RF + WL]`` int32 of the starts ``idx``."""
-        pos = self.starts[idx][:, None] + np.arange(self.window)[None, :]
-        return self.data[pos]
+        """Windows ``[len(idx), RF + WL]`` int32 of the starts ``idx`` (the
+        C++ gather when built; every start was checked in ``__init__``)."""
+        return native.gather_windows(self.data, self.starts[idx], self.window)
 
     def batches(
         self,

@@ -1,7 +1,8 @@
 """Standard MIDI File I/O + the C-RNN-GAN event pipeline, dependency-free
-(a copy of :mod:`music_tpu.data.midi` without its native parser: the
-port has no C++ data path, so :func:`midi_to_song_data` always runs the
-Python parser, which the JAX package's tests hold equal to the native one).
+(counterpart of :mod:`music_tpu.data.midi`: :func:`midi_to_song_data`
+parses with the C++ data path, :mod:`music_tpu_torch.native`, when its
+library builds, and with the Python parser for any file the C++ parser
+declines or when asked with ``use_native=False``).
 
 Replaces the reference's mido-based parser (c-rnn-gan/data.py:100-174) and
 tone/frequency conversions (c-rnn-gan/utils.py:4-23), and adds the event ->
@@ -105,11 +106,24 @@ def read_midi(path: str | Path) -> dict:
 
 def midi_to_song_data(
     path: str | Path, output_ticks_per_quarter_note: int = 384,
+    use_native: bool = True,
 ) -> list[list[float]]:
     """MIDI file -> sorted note-event list, reference semantics
     (c-rnn-gan/data.py:100-143): note_on opens an event, matching note_off
     (or velocity-0 note_on) closes it; ticks normalized to the output
-    resolution; never-closed events get a quarter-note length."""
+    resolution; never-closed events get a quarter-note length.
+
+    With ``use_native`` the C++ parser
+    (:func:`music_tpu_torch.native.parse_smf_events`) walks the bytes; a
+    file it declines, or a host without its library, goes through the
+    Python parser below."""
+    if use_native:
+        from music_tpu_torch import native
+
+        events = native.parse_smf_events(Path(path).read_bytes(),
+                                         output_ticks_per_quarter_note)
+        if events is not None:
+            return [list(row) for row in events]
     mid = read_midi(path)
     scale = mid["ticks_per_beat"] / output_ticks_per_quarter_note
     song = []

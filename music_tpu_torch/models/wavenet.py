@@ -152,16 +152,17 @@ def _bias(params: dict, cfg: WaveNetConfig, name: str, i: int | None = None):
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
-            fuse_taps: bool = False) -> torch.Tensor:
+            fuse_taps: bool = False, skip_block: int = 0) -> torch.Tensor:
     """Logits ``[B, T - receptive_field + 1, Q]`` over int codes ``[B, T]``:
     the prediction for the sample after each full receptive field.
-    ``fuse_taps`` contracts each layer's taps in one matmul (the trainer's
-    form; same math, reassociated adds)."""
+    ``fuse_taps`` contracts each layer's taps in one matmul and
+    ``skip_block`` > 1 the skip products of that many layers in one (the
+    trainer's forms; same math, reassociated adds)."""
     T = tokens.shape[1]
     if T - cfg.receptive_field + 1 <= 0:
         raise ValueError(f"sequence length {T} < receptive field {cfg.receptive_field}")
     x = token_causal_conv(tokens, params["causal"], _bias(params, cfg, "causal_b"))
-    return _forward_from_causal(params, x, cfg, fuse_taps=fuse_taps)
+    return _forward_from_causal(params, x, cfg, fuse_taps=fuse_taps, skip_block=skip_block)
 
 
 def forward_onehot(params: dict, wave: torch.Tensor, cfg: WaveNetConfig) -> torch.Tensor:
@@ -172,18 +173,37 @@ def forward_onehot(params: dict, wave: torch.Tensor, cfg: WaveNetConfig) -> torc
 
 
 def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
-                         fuse_taps: bool = False) -> torch.Tensor:
+                         fuse_taps: bool = False, skip_block: int = 0) -> torch.Tensor:
     """The layers after the causal conv: ``x [B, T - fw + 1, Cr]`` ->
-    logits ``[B, T - receptive_field + 1, Q]``."""
+    logits ``[B, T - receptive_field + 1, Q]``.
+
+    ``skip_block`` = K > 1 computes the skip path as one
+    ``[B·T, K·Cd] x [K·Cd, Cs]`` product a block of K layers (the last
+    block may be shorter), with the block's skip biases summed: the
+    per-layer sum reassociated, as the JAX trainer's ``skip_block`` (and
+    ``stack_skips``, K = L)."""
     out_width = x.shape[1] + cfg.filter_width - cfg.receptive_field
-    skip_total = None
+    L, Cd = cfg.n_blocks, cfg.dilation_channels
+    skip_total, zs = None, []
     for i, d in enumerate(cfg.dilations):
         fg = dilated_causal_conv(x, params["fg"][i], _bias(params, cfg, "fg_b", i), dilation=d,
                                  fuse_taps=fuse_taps)
         z = _gate(fg)
         dense = conv1x1(z, params["dense"][i], _bias(params, cfg, "dense_b", i))
         x = dense + x[:, -dense.shape[1]:, :]
-        skip = conv1x1(z[:, -out_width:, :], params["skip"][i], _bias(params, cfg, "skip_b", i))
+        if skip_block > 1:
+            zs.append(z[:, -out_width:, :])
+            if len(zs) < skip_block and i + 1 < L:
+                continue
+            k0 = i + 1 - len(zs)
+            w = params["skip"][k0:i + 1].reshape(len(zs) * Cd, -1)
+            skip = conv1x1(torch.cat(zs, dim=-1), w)
+            if cfg.use_bias:
+                skip = skip + params["skip_b"][k0:i + 1].sum(dim=0)
+            zs = []
+        else:
+            skip = conv1x1(z[:, -out_width:, :], params["skip"][i],
+                           _bias(params, cfg, "skip_b", i))
         skip_total = skip if skip_total is None else skip_total + skip
     h = torch.relu(skip_total)
     h = torch.relu(conv1x1(h, params["post1"], _bias(params, cfg, "post1_b")))
@@ -191,15 +211,17 @@ def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
-            fuse_taps: bool = False, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+            fuse_taps: bool = False, compute_dtype: torch.dtype | None = None,
+            skip_block: int = 0) -> torch.Tensor:
     """Next-sample cross entropy: ``tokens[:, receptive_field:]`` are the
     targets of the logits at positions ``[:-1]``.  With ``compute_dtype``
     (mixed precision, e.g. ``torch.bfloat16``) the parameters are cast to
     it inside the loss, so their gradients stay in the master dtype, and
-    the log-softmax runs in float32."""
+    the log-softmax runs in float32.  ``skip_block``: see
+    :func:`_forward_from_causal`."""
     if compute_dtype is not None:
         params = {k: v.to(compute_dtype) for k, v in params.items()}
-    logits = forward(params, tokens[:, :-1], cfg, fuse_taps=fuse_taps)
+    logits = forward(params, tokens[:, :-1], cfg, fuse_taps=fuse_taps, skip_block=skip_block)
     targets = tokens[:, cfg.receptive_field:].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, targets[..., None]).mean()

@@ -14,9 +14,11 @@ The loss is the model's :func:`~music_tpu_torch.models.wavenet.loss_fn`
 with fused taps, the JAX trainer's ``_sharded_loss`` on one device.
 ``compute_dtype: "bfloat16"`` casts the parameters to bf16 inside the loss
 and keeps the log-softmax in float32, as the JAX trainer does (its
-rounding points, not ``torch.autocast``'s).  Not here: the mesh (data,
-sequence and tensor parallelism, multi-process) and the opt-in stacked or
-blocked skip GEMMs (ROADMAP.md, queue A).
+rounding points, not ``torch.autocast``'s).  :func:`make_train_step` also
+takes the JAX trainer's opt-in stacked or blocked skip GEMMs
+(``stack_skips``, ``skip_block``), which ``train()`` does not expose, as
+JAX's does not.  Not here: the mesh (data, sequence and tensor
+parallelism, multi-process; ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -71,11 +73,16 @@ def step_fn(loss_fn: Callable, tx: optim.GradientTransformation):
 
 
 def make_train_step(cfg: wn.WaveNetConfig, tx: optim.GradientTransformation,
-                    compute_dtype: torch.dtype | None = None):
+                    compute_dtype: torch.dtype | None = None, stack_skips: bool = False,
+                    skip_block: int = 0):
     """One update on :func:`~music_tpu_torch.models.wavenet.loss_fn` with
-    fused taps, in ``compute_dtype`` when given (see :func:`step_fn`)."""
+    fused taps, in ``compute_dtype`` when given (see :func:`step_fn`).
+    ``stack_skips`` computes the skip path as one ``[B·T, L·Cd] x
+    [L·Cd, Cs]`` product, ``skip_block=K`` as one such product a block of
+    K layers; the defaults keep one product a layer."""
+    K = cfg.n_blocks if stack_skips else max(skip_block, 0)
     return step_fn(lambda params, tokens: wn.loss_fn(
-        params, tokens, cfg, fuse_taps=True, compute_dtype=compute_dtype), tx)
+        params, tokens, cfg, fuse_taps=True, compute_dtype=compute_dtype, skip_block=K), tx)
 
 
 def _staged(batches: Iterator[np.ndarray], device: torch.device) -> Iterator[torch.Tensor]:

@@ -27,6 +27,9 @@ from music_tpu_torch.models import crnngan as cg
 from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.mulaw import mu_law_encode
+from music_tpu_torch.runs import cli_journey_run as journey_run
+from music_tpu_torch.runs import wavenet_ae_quality_run as ae_run
+from music_tpu_torch.runs import wavenet_poly_quality_run as poly_run
 from music_tpu_torch.train import crnngan_train as cgtrain
 from music_tpu_torch.train import leakgan_train as lgtrain
 from music_tpu_torch.train import seqgan_train as sgtrain
@@ -37,8 +40,10 @@ COPIES = sorted(
     str(p.relative_to(PORT))
     for p in [*PORT.glob("params/**/*.json"), *PORT.glob("ops/*.npy"),
               PORT / "data" / "tokens.py", PORT / "data" / "midi_scraper.py",
-              PORT / "utils" / "visualize.py"]
+              PORT / "utils" / "visualize.py", PORT / "csrc" / "datapath.cc"]
 )
+ORIGINALS = {"csrc/datapath.cc": REPO / "native" / "datapath.cc"}
+"""Copies whose original is not at the same path under music_tpu/."""
 
 
 def test_port_imports_nothing_of_jax_or_music_tpu():
@@ -54,7 +59,7 @@ def test_port_imports_nothing_of_jax_or_music_tpu():
         "    importlib.import_module(name)\n"
         "print('IMPORTED', len(names))\n"
         "print('LOADED', sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'music_tpu')))\n"
+        " ('jax', 'jaxlib', 'music_tpu', 'benchmarks', 'native')))\n"
     )
     env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -63,12 +68,16 @@ def test_port_imports_nothing_of_jax_or_music_tpu():
     assert "LOADED []" in proc.stdout, proc.stdout
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
     assert n >= 20, proc.stdout  # every subpackage and module was reached
+    for name in ("native", "runs.common", "runs.wavenet_poly_quality_run",
+                 "runs.wavenet_ae_quality_run", "runs.cli_journey_run"):
+        assert (PORT / f"{name.replace('.', '/')}.py").exists(), name  # walked above
 
 
 def test_no_import_statement_of_jax_or_music_tpu():
-    """No line of the port's sources or chip_smoke.py imports jax or
-    music_tpu (docstrings may name their counterparts)."""
-    pattern = re.compile(r"^\s*(import|from)\s+(music_tpu|jax)(\.|\s|$)")
+    """No line of the port's sources (``native.py`` and ``runs/*`` too) or
+    chip_smoke.py imports jax, music_tpu, the JAX package's ``native`` or
+    its ``benchmarks`` (docstrings may name their counterparts)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(music_tpu|jax|native|benchmarks)(\.|\s|$)")
     offending = [
         f"{path.relative_to(REPO)}:{i}"
         for path in [*sorted(PORT.rglob("*.py")), REPO / "chip_smoke.py"]
@@ -80,11 +89,13 @@ def test_no_import_statement_of_jax_or_music_tpu():
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_file_equals_the_jax_packages(rel):
-    assert (PORT / rel).read_bytes() == (REPO / "music_tpu" / rel).read_bytes()
+    original = ORIGINALS.get(rel, REPO / "music_tpu" / rel)
+    assert (PORT / rel).read_bytes() == original.read_bytes()
 
 
 def test_copies_cover_the_ported_families():
     assert COPIES == [
+        "csrc/datapath.cc",
         "data/midi_scraper.py",
         "data/tokens.py",
         "ops/_mulaw_decode_q256.npy",
@@ -202,6 +213,9 @@ ENTRY_POINTS = {
         ["crnngan", "train", "--midi-dir", str(_midi_dir(tmp)), "--checkpoint", str(tmp / "ck")]),
     "CLI crnngan generate": lambda tmp: cli.main(
         ["crnngan", "generate", "--checkpoint", str(tmp / "none"), "--out", str(tmp / "x.mid")]),
+    "runs wavenet_poly_quality_run": lambda tmp: poly_run.main(["--out", str(tmp / "ck")]),
+    "runs wavenet_ae_quality_run": lambda tmp: ae_run.main(["--out", str(tmp / "ck")]),
+    "runs cli_journey_run": lambda tmp: journey_run.main(["--workdir", str(tmp / "ck")]),
 }
 
 
