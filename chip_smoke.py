@@ -163,10 +163,26 @@ Training to a result, at the shipped width:
     trained weights against the per-layer one (window 40,000, batch 4,
     float32: loss within 1e-6 relative, gradients within 1e-4 relative +
     1e-6), and each variant's step in f32 and bf16;
-23. a JSON line describing each kernel (times in ms per decode step, with
+The mesh code path (``music_tpu_torch.parallel``):
+
+23. (a) one rank of an NCCL process group of one, initialised in process
+    over a TCP store on localhost, at the shipped width: three trainer
+    steps on a ``data=-1`` mesh (window 40,000, batch 4, f32) against the
+    single-device step from the same state (losses within 1e-5 relative),
+    each step's ms, a checkpoint saved from the mesh restored into the
+    single-device trainer, ``generate_batch(mesh=...)`` of 32 bf16
+    categorical streams of 0.25 s equal to ``mesh=None``'s code for code in
+    one launch of B1, and one ``DecodeSession(mesh=...)`` call equal to the
+    single-device session's; (b) two gloo ranks spawned on the one card,
+    a ``data=2`` and a ``model=2`` step on windows of 4,000: the loss and
+    every gradient leaf in float64 within 1e-5 of one device's (one
+    device's own float32 gradients lie further than that from float64's at
+    window 40,000, which is printed), the float32 gaps and a float32
+    step's ms;
+24. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
-    launches counted over the main-path phases 4, 7, 10, 13, 17, 18 and
-    22), then the device JSON as the last line.
+    launches counted over the main-path phases 4, 7, 10, 13, 17, 18, 22
+    and 23), then the device JSON as the last line.
 
 It imports nothing of JAX.  Float32 matmuls in the plain versions run in
 full float32 (TF32 off, see ``music_tpu_torch.ops.conv.full_fp32``).
@@ -999,6 +1015,236 @@ def training_phase(card: str, dev, config: str = "shipped", steps: int = CHORD_S
     return {"tie": tie, "launched": launched, "seconds": seconds}
 
 
+MESH_STEPS = 3  # phase 23's trainer steps on the mesh and on one device, from one state
+MESH_TOL = 1e-5  # loss: relative; gradients: of each leaf's largest magnitude
+
+
+def _leaf_error(ours: dict, ref: dict) -> float:
+    """The largest gap of any leaf, over that leaf's largest magnitude."""
+    return max(float((ours[k].double().cpu() - ref[k].double().cpu()).abs().max()
+                     / ref[k].double().abs().max().clamp_min(1e-30)) for k in ref)
+
+
+def _mesh_rank_grads(cfg_json: dict, params: dict, tokens, shapes: tuple, window: int,
+                     device: str):
+    """Phase 23(b), one gloo rank: for each mesh shape of the two ranks, the
+    loss and the whole gradients of one step's loss in float64, then those
+    of one in float32 with its ms (rank 0 returns them)."""
+    import torch
+
+    from music_tpu_torch.core import optim
+    from music_tpu_torch.models import wavenet as wn
+    from music_tpu_torch.parallel.collectives import sum_grads
+    from music_tpu_torch.parallel.mesh import MeshSpec, gather, make_mesh, shard_params
+    from music_tpu_torch.parallel.multihost import put_global_batch
+    from music_tpu_torch.train import wavenet_train
+
+    cfg = wn.WaveNetConfig.from_json(cfg_json)
+    out = []
+    for shape in shapes:
+        mesh = make_mesh(MeshSpec(*shape), device=device)
+        loss_fn, specs = wavenet_train.make_loss_fn(cfg, mesh, window)
+        batch = put_global_batch(mesh, tokens)
+        result = []
+        for dtype in (torch.float64, torch.float32):
+            live = optim.live(shard_params(mesh, {k: v.to(dtype) for k, v in params.items()},
+                                           specs))
+            sync(mesh.device)
+            t0 = time.perf_counter()
+            loss = loss_fn(live, batch)
+            grads = sum_grads(optim.tree_grads(loss, live), mesh)
+            sync(mesh.device)
+            ms = (time.perf_counter() - t0) * 1e3
+            result += [float(loss.detach()),
+                       {k: gather(mesh, g, specs[k]).cpu() for k, g in grads.items()}]
+        out.append((*result, ms))
+    return out if mesh.rank == 0 else None
+
+
+def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
+               batch: int = 4, streams: int = 32, duration: float = 0.25,
+               session_steps: int = SESSION_STEPS, gloo_window: int | None = 4_000) -> dict:
+    """Phase 23: the mesh code path on the card.  (a) One rank of a process
+    group of one (NCCL on the card, gloo on the CPU), initialised in
+    process over a TCP store on localhost: ``MESH_STEPS`` trainer steps on
+    a ``data=-1`` mesh against the single-device step from the same state
+    (losses within ``MESH_TOL``), the mesh step's and the single-device
+    step's ms, a checkpoint saved from the mesh restored into the
+    single-device trainer, ``generate_batch(mesh=...)`` of ``streams`` bf16
+    categorical streams equal to ``mesh=None``'s code for code in one
+    launch of B1, and one ``DecodeSession(mesh=...)`` call equal to the
+    single-device session's.  (b) With a ``gloo_window``, two gloo ranks
+    spawned on the one device, one ``data=2`` and one ``model=2`` step's
+    loss and every gradient leaf in float64 against one device's, and a
+    float32 step's ms, on windows of ``gloo_window`` (a tenth of (a)'s: the
+    ranks' collectives go through the host, 1.2 GB a ``model=2`` step at
+    40,000).  At the shipped width by default; ``config="tiny"`` and small
+    shapes rehearse it on the CPU.  Returns the main path's launches of
+    each kernel and the phase's seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from music_tpu_torch.core import checkpoint, optim
+    from music_tpu_torch.generate.serving import DecodeSession
+    from music_tpu_torch.generate.wavenet_generate import generate_batch
+    from music_tpu_torch.kernels import _build
+    from music_tpu_torch.kernels import wavenet_decode as dec
+    from music_tpu_torch.kernels import wavenet_decode_hbm as hbm
+    from music_tpu_torch.models import wavenet as wn
+    from music_tpu_torch.parallel import launch, multihost
+    from music_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from music_tpu_torch.runs import wavenet_poly_quality_run as poly
+    from music_tpu_torch.train import wavenet_train
+
+    t_phase = time.perf_counter()
+    cfg = poly.config(config)
+    cfg_json = {**dataclasses.asdict(cfg), "dilations": list(cfg.dilations)}
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, backend=backend,
+                         device=dev.type)
+    try:
+        mesh = make_mesh(MeshSpec(data=-1), device=dev.type)
+        specs = wavenet_train.param_specs(cfg, False)
+        tx = optim.adam(1e-3)
+        rng = np.random.default_rng(23)
+        tokens_np = rng.integers(0, cfg.quantization_channels,
+                                 (batch, cfg.receptive_field + window)).astype(np.int32)
+        tokens = torch.from_numpy(tokens_np).to(dev)
+        init = wavenet_train.init_state(torch.Generator().manual_seed(23), cfg, tx, dev)
+        params0 = {k: v.clone() for k, v in init.params.items()}
+        single = wavenet_train.make_train_step(cfg, tx)
+        on_mesh = wavenet_train.make_train_step(cfg, tx, mesh=mesh, window_length=window)
+        runs = {}
+        for label, step_fn in (("one device", single), ("mesh", on_mesh)):
+            st, losses = init, []
+            for _ in range(MESH_STEPS):
+                st, loss = step_fn(st, tokens)
+                losses.append(float(loss))
+            runs[label] = (st, losses)
+        worst = max(abs(a - b) / abs(b) for a, b in zip(runs["mesh"][1], runs["one device"][1]))
+        print(f"[23] (a) one {backend} rank, {cfg.n_blocks} blocks, batch {batch} x window "
+              f"{window}, f32: {MESH_STEPS} steps on a data=-1 mesh, losses "
+              f"{runs['mesh'][1]} against one device's {runs['one device'][1]}: "
+              f"{worst:.2e} relative", flush=True)
+        if worst > MESH_TOL:
+            fail(f"[23] the mesh step's losses differ from one device's by {worst:.3g}")
+        ms = {"one device": [], "mesh": []}
+        for label in ("one device", "mesh", "mesh", "one device"):
+            st = runs[label][0]
+            step_fn = single if label == "one device" else on_mesh
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                st, _ = step_fn(st, tokens)
+            sync(dev)
+            ms[label].append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+        print(f"[23] trainer step, mean of {TRAIN_STEPS} (A B B A): mesh "
+              f"{ms['mesh'][0]:.2f} and {ms['mesh'][1]:.2f} ms, one device "
+              f"{ms['one device'][0]:.2f} and {ms['one device'][1]:.2f} ms  [{card}]",
+              flush=True)
+
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+            state = runs["mesh"][0]
+            checkpoint.save(tmp, int(state.step), state, mesh=mesh, specs=specs)
+            restored = checkpoint.restore(tmp, wavenet_train.init_state(
+                torch.Generator().manual_seed(0), cfg, tx, dev))
+        err = _leaf_error(restored.params, state.params)
+        _, loss_r = single(restored, tokens)
+        _, loss_m = on_mesh(state, tokens)
+        if err != 0 or int(restored.step) != MESH_STEPS or abs(
+                float(loss_r) - float(loss_m)) > MESH_TOL * abs(float(loss_m)):
+            fail(f"[23] the mesh checkpoint restored into one device: params off by {err}, "
+                 f"step {int(restored.step)}, next loss {float(loss_r)} vs {float(loss_m)}")
+        print(f"[23] checkpoint of the mesh state at step {MESH_STEPS} restored into the "
+              f"single-device trainer: params equal, next loss {float(loss_r):.6f} (mesh "
+              f"{float(loss_m):.6f})", flush=True)
+        del runs, st, state, restored
+
+        P = cfg.receptive_field + max(cfg.dilations)
+        primes = rng.integers(0, cfg.quantization_channels, (streams, P)).astype(np.int32)
+        kw = dict(cfg=cfg, params=params0, n=streams, start_pieces=primes, duration=duration,
+                  sample_mode="categorical", dtype=torch.bfloat16, seed=23, device=dev)
+        ref = generate_batch(**kw)  # the comparison's launch, not the main path's
+        for module in (dec, hbm):
+            module.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ours = generate_batch(**kw, mesh=mesh)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launched = {"wavenet_decode": dec.LAUNCHES, "wavenet_decode_hbm": hbm.LAUNCHES}
+        if not np.array_equal(ours, ref):
+            fail("[23] generate_batch(mesh) differs from mesh=None")
+        if dev.type == "cuda" and launched != {"wavenet_decode": 1, "wavenet_decode_hbm": 0}:
+            fail(f"[23] generate_batch(mesh) was not one launch of B1: {launched}")
+        print(f"[23] generate_batch(mesh), {streams} bf16 categorical streams of "
+              f"{ours.shape[1]} samples: equal to mesh=None's, {launched}, {wall:.2f} s",
+              flush=True)
+
+        session_kw = dict(capacity=streams, steps_per_call=session_steps, seed=23, device=dev)
+        ref_sess = DecodeSession(cfg, params0, **session_kw)
+        sess = DecodeSession(cfg, params0, **session_kw, mesh=mesh)
+        for s in (ref_sess, sess):
+            for prime in primes:
+                s.add(prime)
+        want = ref_sess.step()
+        for module in (dec, hbm):
+            module.LAUNCHES = 0
+        got = sess.step()
+        sync(dev)
+        if dev.type == "cuda" and (dec.LAUNCHES, hbm.LAUNCHES) != (1, 0):
+            fail(f"[23] DecodeSession(mesh) call: {dec.LAUNCHES} launches of B1, "
+                 f"{hbm.LAUNCHES} of B2")
+        launched["wavenet_decode"] += dec.LAUNCHES
+        if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in got):
+            fail("[23] the DecodeSession(mesh) call differs from the single-device session's")
+        print(f"[23] DecodeSession(mesh) call, {streams} bf16 categorical streams x "
+              f"{session_steps} steps: equal to the single-device session's, "
+              f"{dec.LAUNCHES} launch of B1", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    if gloo_window:
+        # held in float64: in float32 one device's own gradients lie further
+        # from float64's than the 1e-5 the split is held to (printed next)
+        def grads_of(dtype, toks):
+            live = optim.live({k: v.to(dtype) for k, v in params0.items()})
+            loss = wn.loss_fn(live, toks, cfg, fuse_taps=True)
+            return float(loss.detach()), optim.tree_grads(loss, live)
+
+        f32_gap = _leaf_error(grads_of(torch.float32, tokens)[1],
+                              grads_of(torch.float64, tokens)[1])
+        print(f"[23] one device's float32 gradients at window {window} lie within "
+              f"{f32_gap:.2e} of float64's (of each leaf's largest magnitude)", flush=True)
+        gloo_tokens = tokens_np[:, :cfg.receptive_field + gloo_window]
+        ref_loss, ref_grads = grads_of(torch.float64, torch.from_numpy(gloo_tokens).to(dev))
+        _, ref32 = grads_of(torch.float32, torch.from_numpy(gloo_tokens).to(dev))
+        shapes = ((2, 1, 1), (1, 1, 2))
+        t0 = time.perf_counter()
+        results = launch.run(_mesh_rank_grads, 2, (cfg_json, {k: v.cpu() for k, v in
+                                                              params0.items()},
+                                                  gloo_tokens, shapes, gloo_window, dev.type),
+                             backend="gloo", device=dev.type)[0]
+        spawn_s = time.perf_counter() - t0
+        for shape, (loss, grads, _, grads32, step_ms) in zip(shapes, results):
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            err = _leaf_error(grads, ref_grads)
+            print(f"[23] (b) two gloo ranks on one {dev.type} device, mesh {shape}, batch "
+                  f"{batch} x window {gloo_window}, float64: loss {rel:.2e} relative, every "
+                  f"gradient leaf within {err:.2e} of its largest magnitude of one device's "
+                  f"(float32: {_leaf_error(grads32, ref32):.2e}); a float32 forward and "
+                  f"backward with the gradient sum {step_ms:.1f} ms  [{card}]", flush=True)
+            if rel > MESH_TOL or err > MESH_TOL:
+                fail(f"[23] the gloo mesh {shape} differs from one device: loss {rel:.3g}, "
+                     f"gradients {err:.3g}")
+        print(f"[23] (b) took {spawn_s:.1f} s with the spawn of the two ranks", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[23] the mesh phase took {seconds:.1f} s", flush=True)
+    return {"launched": launched, "seconds": seconds}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     if not (ROOT / "music_tpu_torch").is_dir():
@@ -1142,19 +1388,21 @@ def main() -> None:
     # -- 3. kernel vs plain on the card, tiny config
     tiny = wn.WaveNetConfig(dilations=(1, 2, 4, 8, 1, 2, 4, 8), dilation_channels=8,
                             residual_channels=8, skip_channels=16, quantization_channels=32)
-    cases = [  # (label, rows, streams per block, dtype, mode)
-        ("f32 argmax 1 stream", 1, 1, torch.float32, "argmax"),
-        ("f32 argmax 11 streams (2 x 8)", 11, 8, torch.float32, "argmax"),
-        ("bf16 argmax 16 streams", 16, 16, torch.bfloat16, "argmax"),
-        ("f32 categorical 11 streams (2 x 8)", 11, 8, torch.float32, "categorical"),
+    cases = [  # (label, rows, streams per block, dtype, mode, global row of the first)
+        ("f32 argmax 1 stream", 1, 1, torch.float32, "argmax", 0),
+        ("f32 argmax 11 streams (2 x 8)", 11, 8, torch.float32, "argmax", 0),
+        ("bf16 argmax 16 streams", 16, 16, torch.bfloat16, "argmax", 0),
+        ("f32 categorical 11 streams (2 x 8)", 11, 8, torch.float32, "categorical", 0),
+        ("f32 categorical 11 streams (2 x 8), global rows 13-23", 11, 8, torch.float32,
+         "categorical", 13),
     ]
     g = torch.Generator().manual_seed(1234)
     params = wn.init_params(tiny, g, device=dev)
     P = tiny.receptive_field + max(tiny.dilations)
-    for label, rows, S, dtype, mode in cases:
+    for label, rows, S, dtype, mode, row0 in cases:
         prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
         groups = -(-rows // S)
-        sampling = dict(sample_mode=mode, temperature=0.9, seed=77)
+        sampling = dict(sample_mode=mode, temperature=0.9, seed=77, row0=row0)
         inputs = dec.prepare(params, prime, cfg=tiny, n_streams=S, n_stream_groups=groups,
                              dtype=dtype, **sampling)
         kw = dict(cfg=tiny, n_steps=300, dtype=dtype, **sampling)
@@ -1464,22 +1712,26 @@ def main() -> None:
     P = tiny.receptive_field + max(tiny.dilations)
     b2_tile = hbm.max_streams(tiny)  # the largest working-dtype tile, f32 or bf16: 4
     assert b2_tile == hbm.max_streams(tiny, bf16)
-    b2_cases = [  # (label, rows, streams per block, dtype, mode, weight dtype, int8 products, act)
-        ("f32 argmax 1 stream", 1, 1, f32, "argmax", None, False, None),
+    b2_cases = [  # (label, rows, streams per block, dtype, mode, weight dtype, int8 products,
+        #           act, global row of the first)
+        ("f32 argmax 1 stream", 1, 1, f32, "argmax", None, False, None, 0),
         (f"f32 argmax 11 streams (3 x {b2_tile})", 11, b2_tile, f32, "argmax", None, False,
-         None),
+         None, 0),
         (f"bf16 argmax 16 streams (4 x {b2_tile})", 16, b2_tile, bf16, "argmax", None, False,
-         None),
+         None, 0),
         (f"f32 categorical 11 streams (3 x {b2_tile})", 11, b2_tile, f32, "categorical", None,
-         False, None),
-        ("int8 weights f32 11 streams", 11, 8, f32, "argmax", int8, False, None),
-        ("int8 weights bf16 16 streams", 16, 16, bf16, "argmax", int8, False, None),
-        ("int8 products, dynamic scales, 11 streams", 11, 8, f32, "argmax", int8, True, None),
-        ("int8 products, static scales, 11 streams", 11, 8, f32, "argmax", int8, True, tiny_act),
+         False, None, 0),
+        (f"f32 categorical 11 streams (3 x {b2_tile}), global rows 13-23", 11, b2_tile, f32,
+         "categorical", None, False, None, 13),
+        ("int8 weights f32 11 streams", 11, 8, f32, "argmax", int8, False, None, 0),
+        ("int8 weights bf16 16 streams", 16, 16, bf16, "argmax", int8, False, None, 0),
+        ("int8 products, dynamic scales, 11 streams", 11, 8, f32, "argmax", int8, True, None, 0),
+        ("int8 products, static scales, 11 streams", 11, 8, f32, "argmax", int8, True, tiny_act,
+         0),
     ]
-    for label, rows, S, dtype, mode, wd, q8, act in b2_cases:
+    for label, rows, S, dtype, mode, wd, q8, act, row0 in b2_cases:
         prime = torch.randint(0, 32, (rows, P), generator=g).to(dev, torch.int32)
-        sampling = dict(sample_mode=mode, temperature=0.9, seed=77)
+        sampling = dict(sample_mode=mode, temperature=0.9, seed=77, row0=row0)
         model = b2_params if wd is None else b2_dq  # int8 weights: requantizing dq is exact
         inputs = hbm.prepare(model, prime, cfg=tiny, n_streams=S, n_stream_groups=-(-rows // S),
                              dtype=dtype, weight_dtype=wd, int8_matmul=q8, act_scales=act,
@@ -2233,21 +2485,28 @@ def main() -> None:
     main_path_launches["wavenet_decode"] += trained["launched"]["wavenet_decode"]
     worst_deficit["wavenet_decode"] = max(worst_deficit["wavenet_decode"],
                                           -trained["tie"]["min_margin"])
+
+    # -- 23. the mesh code path: one NCCL rank at the shipped width (its
+    # generate_batch and session call each one launch of B1), two gloo
+    # ranks on the card
+    reset_counts()
+    meshed = mesh_phase(card, dev)
+    main_path_launches["wavenet_decode"] += meshed["launched"]["wavenet_decode"]
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 23. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 24. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
     # PyTorch call computes any of the decodes; phases 19-21 launch none of
-    # them, phase 22 one of B1)
+    # them, phase 22 one of B1, phase 23 two)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
-    print(f"[23] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"[24] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -12,6 +12,8 @@ reader can find each counterpart:
 - ``music_tpu_torch.kernels``  — hand-written CUDA kernels (sources under
   ``csrc/``) with their plain PyTorch versions.
 - ``music_tpu_torch.generate`` — the generation entry points.
+- ``music_tpu_torch.parallel`` — the (data, seq, model) mesh over
+  ``torch.distributed`` ranks, one process per device.
 - ``music_tpu_torch.params``   — the shipped model configs (JSON).
 
 Parameters keep the JAX layout (channels-last activations, conv weights

@@ -1,6 +1,8 @@
 """Command-line interface of the PyTorch port.
 
     python -m music_tpu_torch wavenet train [--params-dir DIR] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
+        [--dist-backend nccl|gloo]
     python -m music_tpu_torch wavenet generate --checkpoint DIR --out out.wav
         [--duration S] [--sample-mode argmax|categorical] [--num N]
         [--device cuda|cpu] [--params-dir DIR]
@@ -42,9 +44,14 @@ in the checkpoint).  ``dataset scrape-midi`` crawls the sources table
 (default the shipped ``params/c_rnn_gan/midi_sources.json``) into
 ``--out-dir`` and writes its split lists; ``vis loss`` plots a
 ``loss_log.log`` or ``metrics.jsonl`` with matplotlib, or on a host
-without it draws the curve alone with numpy (``utils/loss_png.py``).  The
-multi-process flags of ``wavenet train`` are accepted and refused:
-multi-process training is not ported yet.
+without it draws the curve alone with numpy (``utils/loss_png.py``).
+
+``wavenet train`` on several devices: start one process per device, each
+with the same ``--coordinator`` (``host:port`` of process 0's TCP store),
+``--num-processes`` and its own ``--process-id``; they train one model
+data-parallel, each on its rows of every batch, and process 0 writes the
+logs and checkpoints.  ``--dist-backend`` is ``nccl`` (the default with
+``--device cuda``) or ``gloo`` (the default with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ def cmd_wavenet(args):
         tp = dict(p["train_params"])
         if args.coordinator:
             tp.update(coordinator=args.coordinator, num_processes=args.num_processes,
-                      process_id=args.process_id)
+                      process_id=args.process_id, dist_backend=args.dist_backend)
         train(wavenet_params=p["wavenet_params"], dataset_params=p["dataset_params"],
               train_params=tp, device=args.device)
         return
@@ -320,9 +327,11 @@ def main(argv=None):
         "--num", type=int, default=1,
         help="serve N independent streams (writes N wavs under --out's stem)",
     )
-    p.add_argument("--coordinator", help="multi-process training (not ported: refused)")
-    p.add_argument("--num-processes", type=int, help="multi-process training (not ported)")
-    p.add_argument("--process-id", type=int, help="multi-process training (not ported)")
+    p.add_argument("--coordinator", help="multi-process: process 0's host:port")
+    p.add_argument("--num-processes", type=int, help="multi-process: world size")
+    p.add_argument("--process-id", type=int, help="multi-process: this process's rank")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   help="multi-process: nccl (default on cuda) or gloo (default on cpu)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"], help=device_help)
     p.set_defaults(fn=cmd_wavenet)
 

@@ -8,6 +8,14 @@ in ``jax.tree_util.keystr`` form, its npz key and dtype).  Key paths read
 ``.name`` for a dataclass field, e.g. ``.params['fg']`` for the trainer's
 ``TrainState`` or ``.opt_state[0].mu['fg']`` for its Adam moments.  Either
 package reads what the other writes.
+
+From a mesh (``mesh=``, ``specs=``: parameter name -> partition spec, as
+the trainers' ``param_specs``), every rank calls :func:`save`: the leaves
+split over ranks (a parameter's, and its optimizer moments', by the last
+key of their path) are gathered to whole arrays and only the mesh's first
+rank writes, as the JAX package's ``save`` writes on process 0.  On
+:func:`restore` every rank reads the whole arrays and keeps its block, so
+a checkpoint crosses between meshes, and between the packages, unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays.npz"
@@ -53,28 +62,59 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _spec(path: str, specs: dict | None) -> tuple:
+    """The partition spec of the leaf at ``path``: that of the parameter
+    its last dict key names (replicated for the rest)."""
+    if not specs:
+        return ()
+    keys = [k for k in _parse_path(path) if isinstance(k, str)]
+    return specs.get(keys[-1], ()) if keys else ()
+
+
 def save(
     ckpt_dir: str | Path,
     step: int,
     state: Any,
     *,
     max_checkpoints: int | None = 10,
+    mesh=None,
+    specs: dict | None = None,
 ) -> Path:
     """Save ``state`` (nested dicts, lists, tuples and dataclasses of tensors,
     arrays or scalars) as ``step_<N>``: written to a temporary directory and
-    renamed, then older checkpoints beyond ``max_checkpoints`` are removed."""
+    renamed, then older checkpoints beyond ``max_checkpoints`` are removed.
+    With ``mesh``, every rank of it calls this: leaves split by ``specs``
+    are gathered, the mesh's first rank writes, and all return once the
+    checkpoint is in place."""
+    from music_tpu_torch.parallel.mesh import gather
+
     ckpt_dir = Path(ckpt_dir)
+    target = ckpt_dir / f"step_{step}"
+    main = mesh is None or mesh.is_main
+    arrays, leaves = {}, []
+    for i, (path, leaf) in enumerate(_flatten(state)):
+        if mesh is not None and isinstance(leaf, torch.Tensor):
+            leaf = gather(mesh, leaf, _spec(path, specs))
+        if main:
+            arr = _to_numpy(leaf)
+            arrays[f"leaf_{i}"] = arr
+            leaves.append({"path": path, "key": f"leaf_{i}", "dtype": str(arr.dtype)})
+    if main:
+        _write(ckpt_dir, step, arrays, leaves, max_checkpoints)
+    group = None if mesh is None else mesh.group(("data", "seq", "model"))
+    if group is not None:
+        dist.barrier(group=group)
+    return target
+
+
+def _write(ckpt_dir: Path, step: int, arrays: dict, leaves: list,
+           max_checkpoints: int | None) -> None:
     target = ckpt_dir / f"step_{step}"
     tmp = ckpt_dir / f".tmp_step_{step}"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    arrays, leaves = {}, []
-    for i, (path, leaf) in enumerate(_flatten(state)):
-        arr = _to_numpy(leaf)
-        arrays[f"leaf_{i}"] = arr
-        leaves.append({"path": path, "key": f"leaf_{i}", "dtype": str(arr.dtype)})
     np.savez(tmp / _ARRAYS, **arrays)
     manifest = {
         "step": int(step),
@@ -90,7 +130,6 @@ def save(
         steps = all_steps(ckpt_dir)
         for old in steps[: max(0, len(steps) - max_checkpoints)]:
             shutil.rmtree(ckpt_dir / f"step_{old}", ignore_errors=True)
-    return target
 
 
 def all_steps(ckpt_dir: str | Path) -> list[int]:
@@ -156,12 +195,17 @@ def _restored_leaf(key: str, arr: np.ndarray, ref: Any) -> Any:
     return arr.astype(ref_arr.dtype)
 
 
-def restore(ckpt_dir: str | Path, example_state: Any, step: int | None = None) -> Any:
+def restore(ckpt_dir: str | Path, example_state: Any, step: int | None = None, *,
+            mesh=None, specs: dict | None = None) -> Any:
     """The checkpoint at ``step`` (default: the latest) in the structure of
     ``example_state``: every leaf of the example must be stored with its
     shape and kind of number, and comes back in its dtype and on its
-    device.  Raises ``FileNotFoundError`` when there is no checkpoint and
-    ``KeyError`` for a missing leaf."""
+    device.  With ``mesh``, the example's leaves split by ``specs`` are
+    this rank's blocks, and so are the leaves restored.  Raises
+    ``FileNotFoundError`` when there is no checkpoint and ``KeyError`` for
+    a missing leaf."""
+    from music_tpu_torch.parallel.mesh import local_index
+
     target = _checkpoint_dir(ckpt_dir, step)
     manifest = json.loads((target / _MANIFEST).read_text())
     with np.load(target / _ARRAYS) as data:
@@ -170,18 +214,22 @@ def restore(ckpt_dir: str | Path, example_state: Any, step: int | None = None) -
     def fill(path, leaf):
         if path not in stored:
             raise KeyError(f"checkpoint {target} missing leaf {path}")
-        return _restored_leaf(path, stored[path], leaf)
+        arr = stored[path]
+        if mesh is not None:
+            arr = arr[local_index(mesh, _spec(path, specs), arr.shape)]
+        return _restored_leaf(path, arr, leaf)
 
     return _map_leaves(example_state, fill)
 
 
-def restore_or_init(ckpt_dir: str | Path, init_state: Any) -> tuple[Any, int]:
+def restore_or_init(ckpt_dir: str | Path, init_state: Any, *, mesh=None,
+                    specs: dict | None = None) -> tuple[Any, int]:
     """Resume if a checkpoint exists: ``(state, step)`` of the latest one,
-    else ``(init_state, 0)``."""
+    else ``(init_state, 0)`` (``mesh``, ``specs``: see :func:`restore`)."""
     step = latest_step(ckpt_dir)
     if step is None:
         return init_state, 0
-    return restore(ckpt_dir, init_state, step), step
+    return restore(ckpt_dir, init_state, step, mesh=mesh, specs=specs), step
 
 
 def leaf_shapes(ckpt_dir: str | Path, prefix: str = "",

@@ -183,12 +183,20 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        global_norm: Callable[[Any], torch.Tensor] | None = None
+                        ) -> GradientTransformation:
     """Scale every update by ``max_norm / ||g||`` when the global norm of
-    all of them reaches ``max_norm``."""
+    all of them reaches ``max_norm``.  ``global_norm(updates)`` replaces
+    the norm over the leaves held here: a state split over ranks needs the
+    norm of the whole arrays
+    (:func:`music_tpu_torch.parallel.collectives.sharded_global_norm`)."""
     def update(updates, state, params=None):
         g = tree_leaves(updates)
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if global_norm is not None:
+            g_norm = global_norm(updates)
+        else:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         factor = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm).to(g[0].dtype)
         return tree_unflatten(updates, torch._foreach_mul(g, factor)), state
 
@@ -231,11 +239,13 @@ def make_optimizer(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
     grad_clip_norm: float | None = None,
+    global_norm: Callable[[Any], torch.Tensor] | None = None,
 ) -> GradientTransformation:
     """Build an optimizer by name, as the JAX package builds it from optax:
     ``sgd`` (with ``momentum``), ``rmsprop`` (decay 0.9, eps inside the
     square root, with a momentum trace), ``adam`` and ``adamw``; with
-    ``grad_clip_norm``, clipped by global norm first."""
+    ``grad_clip_norm``, clipped by global norm first (``global_norm``: see
+    :func:`clip_by_global_norm`)."""
     name = name.lower()
     if name == "sgd":
         tx = chain(trace(momentum) if momentum else identity(),
@@ -254,7 +264,7 @@ def make_optimizer(
     else:
         raise OptimizerError(f"unknown optimizer {name!r}")
     if grad_clip_norm is not None:
-        tx = chain(clip_by_global_norm(grad_clip_norm), tx)
+        tx = chain(clip_by_global_norm(grad_clip_norm, global_norm), tx)
     return tx
 
 
@@ -267,9 +277,12 @@ def step_lr(base_lr: float, step_size: int, gamma: float) -> Schedule:
     return schedule
 
 
-def from_config(cfg: Mapping[str, Any]) -> GradientTransformation:
+def from_config(cfg: Mapping[str, Any],
+                global_norm: Callable[[Any], torch.Tensor] | None = None
+                ) -> GradientTransformation:
     """An optimizer from a ``train_params`` dict (``optimizer`` or
-    ``optimizer_type``; ``learning_rate`` or ``lr``)."""
+    ``optimizer_type``; ``learning_rate`` or ``lr``); ``global_norm`` for
+    its clip, as :func:`clip_by_global_norm` takes it."""
     name = cfg.get("optimizer", cfg.get("optimizer_type", "adam"))
     lr = cfg.get("learning_rate", cfg.get("lr", 1e-3))
     return make_optimizer(
@@ -278,6 +291,7 @@ def from_config(cfg: Mapping[str, Any]) -> GradientTransformation:
         momentum=cfg.get("momentum", 0.0),
         weight_decay=cfg.get("weight_decay", 0.0),
         grad_clip_norm=cfg.get("grad_clip_norm"),
+        global_norm=global_norm,
     )
 
 
@@ -296,12 +310,17 @@ def tree_grads(loss: torch.Tensor, tree: Any, retain_graph: bool = False) -> Any
 
 
 def grad_update(tx: GradientTransformation, params: Any, opt_state: Any,
-                loss_fn: Callable) -> tuple[Any, Any, torch.Tensor]:
+                loss_fn: Callable, reduce_grads: Callable[[Any], Any] | None = None
+                ) -> tuple[Any, Any, torch.Tensor]:
     """One update on ``loss_fn(params)`` (``jax.value_and_grad``, then
-    ``tx.update`` and ``apply_updates``): ``(params, opt_state, loss)``."""
+    ``tx.update`` and ``apply_updates``): ``(params, opt_state, loss)``.
+    ``reduce_grads`` combines the gradients of ranks before the update
+    (:func:`music_tpu_torch.parallel.collectives.sum_grads`)."""
     variables = live(params)
     loss = loss_fn(variables)
     grads = tree_grads(loss, variables)
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
     with torch.no_grad():
         updates, opt_state = tx.update(grads, opt_state, params)
         params = apply_updates(params, updates)

@@ -108,6 +108,7 @@ struct HbmArgs {
   int* out;           // [B, n_steps]
   // shared-memory carve, in floats from the base (smem_layout in the wrapper)
   int off_tap, off_xq, off_z, off_acc, off_red_a, off_red_b, off_int;
+  uint32_t row0;      // WaveNet: the global row of stream row 0 (Philox key)
 };
 
 struct HbmWeights {
@@ -340,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (!AE && a.sample_mode == 1) {
         uint32_t c[4] = {(uint32_t)j, (uint32_t)(t + 1), 0u, 0u};
-        philox(c, a.seed, (uint32_t)(b0 + s));
+        philox(c, a.seed, a.row0 + (uint32_t)(b0 + s));
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const float u = __uint_as_float((c[m] >> 9) | 0x3F800000u) - 1.f;
@@ -431,9 +432,10 @@ enum HbmPtr {
 // launch.  dtype: 0 float32, 1 bfloat16.  mode: 0 weights in the working
 // dtype (decode_resident.cuh with LAYER_SKIP), 1 int8 weights, 2 int8
 // weights and products (WaveNet only).  dims: L, Cr, Cd, Cs, Q, ring_len,
-// F, pool (F = pool = 1 for WaveNet).  offs: the carve of the mode's body
-// in floats (mode 0: resident_entry's 8, else 7), smem_bytes the carve's
-// size.  sample_mode: 0 argmax, 1 categorical.  A spans pointer runs the
+// F, pool (F = pool = 1 for WaveNet), and for WaveNet row0 (the global row
+// of the launch's first stream, the Philox key's row).  offs: the carve of
+// the mode's body in floats (mode 0: resident_entry's 8, else 7),
+// smem_bytes the carve's size.  sample_mode: 0 argmax, 1 categorical.  A spans pointer runs the
 // phase-timed build (mode 0, WaveNet, float32, one stream a block).
 // Returns the CUDA error code of the launch (0 on success); never
 // synchronises.
@@ -472,6 +474,7 @@ int hbm_entry(int dtype, int mode, int S, int G, const int* dims, const int* off
   a.ring_len = dims[5];
   a.F = dims[6];
   a.pool = dims[7];
+  if constexpr (!AE) a.row0 = (uint32_t)dims[8];
   a.n_steps = n_steps;
   a.sample_mode = sample_mode;
   a.temperature = temperature;

@@ -96,6 +96,7 @@ struct ResArgs {
   const int* pos0;   // [B] absolute time of the token consumed at step 0 (AE)
   int* out;          // [B, n_steps]
   long long* spans;  // [kSpans] cycles per phase (SPANS)
+  uint32_t row0;     // WaveNet: the global row of stream row 0 (Philox key)
 };
 
 struct ResWeights {
@@ -543,12 +544,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     });
     __syncthreads();
     // logits, or logits / temperature + Gumbel noise; a lane's four columns
-    // are one Philox call, counter (lane block, token index), key (seed, row)
+    // are one Philox call, counter (lane block, token index), key (seed,
+    // global row)
     matvec_cols<T, S>(h2, Cs, Cs, post2, Q, [&](int s, int n, const float (&v)[4]) {
       float r[4] = {v[0], v[1], v[2], v[3]};
       if (!AE && a.sample_mode == 1) {
         uint32_t c[4] = {(uint32_t)(n >> 2), (uint32_t)(t + 1), 0u, 0u};
-        philox(c, a.seed, (uint32_t)(b0 + s));
+        philox(c, a.seed, a.row0 + (uint32_t)(b0 + s));
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const float u = __uint_as_float((c[m] >> 9) | 0x3F800000u) - 1.f;
@@ -625,8 +627,10 @@ enum ResPtr {
 
 // What the C entry points do: fill ResArgs and ResWeights and launch.
 // dtype: 0 float32, 1 bfloat16.  dims: L, Cr, Cd, Cs, Q, ring_len, F, pool
-// (F = pool = 1 for WaveNet).  offs: zall (LAYER_SKIP: the z ring), h1, h2,
-// ptap, stage, stage stride (in floats), stage count, ints.  smem_bytes:
+// (F = pool = 1 for WaveNet), and for WaveNet row0, the global row of the
+// launch's first stream (a rank of a data mesh decodes rows row0, ...).
+// offs: zall (LAYER_SKIP: the z ring), h1, h2, ptap, stage, stage stride
+// (in floats), stage count, ints.  smem_bytes:
 // the carve's size.  sample_mode: 0 argmax, 1 categorical.  With a spans
 // pointer the phase-timed build runs (WaveNet, float32, one stream a block
 // only).  Returns the CUDA error code of the launch (0 on success); never
@@ -645,6 +649,7 @@ int resident_entry(int dtype, int S, int G, const int* dims, const int* offs, in
   a.ring_len = dims[5];
   a.F = dims[6];
   a.pool = dims[7];
+  if constexpr (!AE) a.row0 = (uint32_t)dims[8];
   a.n_steps = n_steps;
   a.sample_mode = sample_mode;
   a.temperature = temperature;

@@ -1,5 +1,5 @@
 """Persistent multi-stream decode sessions (continuous batching) on one
-device: counterpart of :mod:`music_tpu.generate.serving`.
+device or a data mesh: counterpart of :mod:`music_tpu.generate.serving`.
 
 A session holds a fixed capacity of streams that join and leave between
 :meth:`step` calls.  Each call packs the active streams' tails into rows,
@@ -11,8 +11,16 @@ kernel is the one :func:`~music_tpu_torch.generate.wavenet_generate.streams_weig
 routes the rows to (the resident or the weight-streaming decode); on the CPU
 its plain version runs, as in the generate paths.
 
-Not here: the data mesh and the multi-process row partitioning of the JAX
-sessions (ROADMAP.md, A11).
+On a data mesh (``mesh=``, :mod:`music_tpu_torch.parallel`) the global row
+space is partitioned by rank, as the JAX sessions partition it by host
+(:func:`_partition_host_rows`): each rank admits streams into its own row
+block, packs and decodes only those rows, one kernel launch a call on its
+device, and reads back only them.  A rank's rows live on its own device,
+so JAX's transports of a host's block into and out of the global array
+(``_put_host_rows``, ``_gather_host_rows``) are the step's copy of the
+packed rows to the device and of the codes back.  The decode needs no
+communication: the ranks need not step in lockstep, and a rank with no
+active stream launches nothing.
 """
 
 from __future__ import annotations
@@ -32,19 +40,45 @@ from music_tpu_torch.ops.mulaw import mu_law_decode
 SEED_STRIDE = 7919  # the per-call seed advance, modulo 2**31
 
 
+def _partition_host_rows(rows: int, capacity: int, nproc: int, pid: int) -> tuple[int, int]:
+    """Partition a session's global kernel rows by rank: ``(host_rows,
+    host_capacity)`` of rank ``pid`` of ``nproc``.  The capacities sum to
+    exactly ``capacity`` (the remainder spread over the first ranks), so an
+    explicit admission bound is never exceeded over the mesh."""
+    if rows % nproc:
+        raise ValueError(f"{rows} kernel rows not divisible by {nproc} processes")
+    host_rows = rows // nproc
+    host_cap = capacity // nproc + (1 if pid < capacity % nproc else 0)
+    return host_rows, min(host_rows, host_cap)
+
+
 def _tiling(capacity: int | None, device: torch.device, resident, streaming, cfg,
-            dtype: torch.dtype) -> tuple[int, int, int]:
-    """``(capacity, n_streams, n_stream_groups)`` of a session: the
-    admission bound (by default one block's tile of the kernel the rows
-    are routed to), and the whole blocks its rows fill."""
+            dtype: torch.dtype, mesh=None) -> tuple[int, int, int, int]:
+    """``(capacity, n_streams, n_stream_groups, row0)`` of a session on this
+    rank: its admission bound (by default one block's tile of the kernel
+    the rows are routed to; on a mesh ``capacity`` is the total, spread by
+    :func:`_partition_host_rows`), the whole blocks its rows fill, and the
+    global row of its first."""
     if capacity is not None and capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
-    kernel = (streaming if wngen.streams_weights(capacity or 1, device, resident, streaming,
+    D = 1 if mesh is None else mesh.shape["data"]
+    want = None if capacity is None else -(-capacity // D)
+    kernel = (streaming if wngen.streams_weights(want or 1, device, resident, streaming,
                                                  cfg, dtype) else resident)
     tile = kernel.max_streams(cfg, dtype)
-    capacity = capacity or tile
-    S, G = wngen.stream_tiling(capacity, device, tile)
-    return capacity, S, G
+    S, G = wngen.stream_tiling(want or tile, device, tile)
+    if mesh is None:
+        return capacity or tile, S, G, 0
+    total = D * S * G
+    _, cap = _partition_host_rows(total, min(capacity or total, total), D, mesh.index("data"))
+    return cap, S, G, mesh.index("data") * S * G
+
+
+def _session_device(device, mesh) -> torch.device:
+    if mesh is None:
+        return wngen.resolve_device(device)
+    wngen.check_serving_mesh(mesh)
+    return mesh.device
 
 
 def _pad_rows(rows: list, total: int) -> list:
@@ -71,6 +105,12 @@ class DecodeSession:
     Each call advances the seed by 7919 (mod 2**31), so categorical streams
     draw new numbers every call.  ``device`` defaults to CUDA and raises
     without a card.
+
+    ``mesh``: a data-only mesh (``device`` is then each rank's); every rank
+    holds its own session of its row block (see the module's docstring):
+    ``capacity`` is the total over the mesh (default one tile a rank) and
+    ``session.capacity`` this rank's share.  A stream in global row ``r``
+    draws Philox stream ``(seed, r)``.
     """
 
     def __init__(
@@ -86,20 +126,21 @@ class DecodeSession:
         steps_per_call: int = 4096,
         backend: str = "fused",
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if backend not in wngen.BACKENDS:
             raise ValueError(f"backend must be one of {wngen.BACKENDS}, got {backend!r}")
         if backend == "fused":
             wavenet_decode._check_supported(cfg)  # use_bias, filter_width
-        self.device = wngen.resolve_device(device)
+        self.device = _session_device(device, mesh)
         self.cfg, self.dtype, self.backend = cfg, dtype, backend
         self.params = wngen.load_params(cfg, params, None, self.device)
         self.sample_mode, self.temperature = sample_mode, temperature
         self.steps_per_call = int(steps_per_call)
         self._seed = int(seed) % 2**31
         self._prime_len = cfg.receptive_field + max(cfg.dilations)
-        self.capacity, S, G = _tiling(capacity, self.device, wavenet_decode,
-                                      wavenet_decode_hbm, cfg, dtype)
+        self.capacity, S, G, self._row0 = _tiling(capacity, self.device, wavenet_decode,
+                                                  wavenet_decode_hbm, cfg, dtype, mesh)
         self._rows = S * G
         self._streams: dict[int, np.ndarray] = {}
         self._next_sid = 0
@@ -139,7 +180,8 @@ class DecodeSession:
         k = self.steps_per_call
         if self.backend == "fused":
             codes = wngen._fused_decode(self.params, prime, self.cfg, k, self.dtype,
-                                        self.sample_mode, self.temperature, self._seed)
+                                        self.sample_mode, self.temperature, self._seed,
+                                        row0=self._row0)
         else:
             codes = wngen._scan_decode(self.params, prime, self.cfg, k, self.sample_mode,
                                        self.temperature, self._seed)
@@ -195,7 +237,7 @@ class AEDecodeSession:
     fixed window of ``frame_window_width`` frames of each stream's
     encoding and the stream's clock on that window (``pos_offset``), so a
     call's conditioning tables stay the same size however long the clips
-    are.  ``capacity``, ``steps_per_call`` and ``device`` as in
+    are.  ``capacity``, ``steps_per_call``, ``device`` and ``mesh`` as in
     :class:`DecodeSession`.
     """
 
@@ -208,14 +250,15 @@ class AEDecodeSession:
         dtype: torch.dtype = torch.float32,
         steps_per_call: int = 4096,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         wavenet_ae_decode._check_supported(cfg)
-        self.device = wngen.resolve_device(device)
+        self.device = _session_device(device, mesh)
         self.cfg, self.dtype = cfg, dtype
         self.params = aegen.load_params(cfg, params, None, self.device)
         self.steps_per_call = int(steps_per_call)
-        self.capacity, S, G = _tiling(capacity, self.device, wavenet_ae_decode,
-                                      wavenet_ae_decode_hbm, cfg, dtype)
+        self.capacity, S, G, _ = _tiling(capacity, self.device, wavenet_ae_decode,
+                                         wavenet_ae_decode_hbm, cfg, dtype, mesh)
         self._rows = S * G
         self._prime_len = cfg.receptive_field + max(cfg.dilations)
         self._pool = cfg.en_pool_kernel_size

@@ -1,7 +1,7 @@
 """WaveNet-autoencoder reconstruction entry points.
 
 Counterpart of :mod:`music_tpu.generate.wavenet_ae_generate` (``generate``
-and the single-device ``generate_batch``): µ-law encode the source clips,
+and ``generate_batch``, on one device or a data mesh): µ-law encode the source clips,
 encode them through the bottleneck, prime with the first
 ``receptive_field + max(d)`` codes of each source, decode the
 reconstruction in one call (one kernel launch on a CUDA device, the
@@ -27,7 +27,7 @@ import torch
 from music_tpu_torch.core import checkpoint as ckpt_lib
 from music_tpu_torch.data import wavio
 from music_tpu_torch.generate.wavenet_generate import (
-    resolve_device, stream_tiling, streams_weights,
+    check_serving_mesh, mesh_rows, resolve_device, stream_tiling, streams_weights,
 )
 from music_tpu_torch.kernels import wavenet_ae_decode, wavenet_ae_decode_hbm
 from music_tpu_torch.models import wavenet_ae as ae
@@ -161,6 +161,7 @@ def generate_batch(
     dtype: torch.dtype = torch.float32,
     backend: str = "fused",
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Serve ``n`` reconstructions at once; returns ``[n, T]`` audio and,
     with ``out_dir``, writes ``recon_000.wav ...``.
@@ -169,20 +170,32 @@ def generate_batch(
     (their conditioning frames must align).  All rows are encoded in one
     batched pass and decoded (argmax) in one fused call, tiled into thread
     blocks as :func:`~music_tpu_torch.generate.wavenet_generate.stream_tiling`
-    says; ``backend="scan"`` runs the plain step loop instead."""
-    device = resolve_device(device)
+    says; ``backend="scan"`` runs the plain step loop instead.
+
+    ``mesh``: a data-only mesh (``device`` is then each rank's): every rank
+    encodes and decodes its block of the rows
+    (:func:`~music_tpu_torch.generate.wavenet_generate.mesh_rows`), returns
+    its rows' audio and zero codes' elsewhere, and writes only its own
+    rows' wavs."""
+    if mesh is not None:
+        check_serving_mesh(mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
     params = load_params(cfg, params, checkpoint_dir, device)
     src = np.asarray(source_audios)
     if src.ndim != 2:
         raise ValueError("source_audios must be [n, T] rows of equal length")
-    codes, encoding = _encode_sources(params, src, cfg, device)
+    n = src.shape[0]
+    rows = slice(0, n) if mesh is None else mesh_rows(mesh, n)
     n_steps = src.shape[1] if duration is None else min(int(duration * sr), src.shape[1])
-    out = _decode(params, encoding, codes, cfg, n_steps, backend=backend,
-                  sample_mode="argmax", seed=0, dtype=dtype)
+    out = torch.zeros((n, n_steps), dtype=torch.int32, device=device)
+    if rows.stop > rows.start:
+        codes, encoding = _encode_sources(params, src[rows], cfg, device)
+        out[rows] = _decode(params, encoding, codes, cfg, n_steps, backend=backend,
+                            sample_mode="argmax", seed=0, dtype=dtype)
     audio = mu_law_decode(out, cfg.quantization_channel).cpu().numpy()
     if out_dir is not None:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        for i in range(audio.shape[0]):
+        for i in range(rows.start, rows.stop):
             wavio.write_wav(out_dir / f"recon_{i:03d}.wav", audio[i], sr)
     return audio

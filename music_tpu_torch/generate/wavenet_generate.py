@@ -1,7 +1,7 @@
 """WaveNet audio generation entry points.
 
 Counterpart of :mod:`music_tpu.generate.wavenet_generate` (``generate`` and
-``generate_batch``, on one device): load the parameters, prime with a
+``generate_batch``, on one device or a data mesh): load the parameters, prime with a
 receptive field (+ max dilation) of µ-law silence (code Q//2), decode in
 one call (one kernel launch on a CUDA device, the kernel's plain version on
 the CPU), µ-law decode and write 16-bit PCM wavs.
@@ -17,6 +17,10 @@ float32 (where the resident carve has no room for the helper warp's
 stages) and stays resident in bf16.  music_tpu's ``_fused_decode`` routes
 by a 12 MB weight size instead, a TPU VMEM budget; on the card both
 kernels read their weights from L2 (PERF.md, section 6).
+
+On a data mesh (``generate_batch(mesh=...)``, :mod:`music_tpu_torch.parallel`)
+each rank decodes its block of the rows with the kernel the rule gives
+them; the decode needs no communication.
 """
 
 from __future__ import annotations
@@ -103,11 +107,12 @@ def stream_tiling(n: int, device: torch.device,
     return sizes[-1], -(-n // sizes[-1])
 
 
-def _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature, seed):
+def _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature, seed, row0=0):
     """``prime``'s rows decoded in one call of the kernel
-    :func:`streams_weights` picks, tiled as :func:`stream_tiling` says."""
+    :func:`streams_weights` picks, tiled as :func:`stream_tiling` says;
+    ``row0`` is the global row of the first (its Philox stream)."""
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, sample_mode=sample_mode,
-              temperature=temperature, seed=seed)
+              temperature=temperature, seed=seed, row0=row0)
     n, device = prime.shape[0], prime.device
     if streams_weights(n, device, wavenet_decode, wavenet_decode_hbm, cfg, dtype):
         S, G = stream_tiling(n, device, wavenet_decode_hbm.max_streams(cfg, dtype))
@@ -127,6 +132,21 @@ def _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed):
             n_steps=n_steps, prime_len=prime.shape[1], sample_mode=sample_mode,
             temperature=temperature,
         )
+
+
+def check_serving_mesh(mesh) -> None:
+    """A serving mesh splits rows over ``data`` only (JAX's
+    ``sharded_rows_program``)."""
+    if mesh.shape["seq"] * mesh.shape["model"] != 1:
+        raise ValueError("serving mesh must be data-only (other axes = 1)")
+
+
+def mesh_rows(mesh, n: int) -> slice:
+    """This rank's rows of ``n``: contiguous blocks of ``ceil(n / data)``
+    in data-coordinate order (the last ranks' may be shorter or empty)."""
+    per = -(-n // mesh.shape["data"])
+    lo = min(n, mesh.index("data") * per)
+    return slice(lo, min(n, lo + per))
 
 
 def _silence(cfg: wn.WaveNetConfig, n: int) -> np.ndarray:
@@ -199,6 +219,7 @@ def generate_batch(
     dtype: torch.dtype = torch.bfloat16,
     backend: str = "fused",
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Serve ``n`` independent streams in one decode call; returns ``[n, T]``
     audio and, with ``out_dir``, writes ``gen_000.wav ...``.
@@ -208,27 +229,40 @@ def generate_batch(
     + max dilation); defaults to silence.  Categorical sampling is the
     default (argmax streams from identical primes would be identical);
     stream ``i`` draws Philox stream ``(seed, i)``.  ``dtype`` defaults to
-    bfloat16 (small numeric differences vs float32)."""
+    bfloat16 (small numeric differences vs float32).
+
+    ``mesh``: a data-only mesh (:mod:`music_tpu_torch.parallel`; ``device``
+    is then each rank's): every rank decodes its block of the rows
+    (:func:`mesh_rows`) in one call on its device, stream ``i`` still
+    drawing Philox stream ``(seed, i)``, so a mesh of any size gives
+    ``mesh=None``'s codes on the fused path.  Each rank returns its own
+    rows' audio and zero codes' elsewhere, and writes only its own rows'
+    wavs, as the JAX package's multi-process branch does."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    device = resolve_device(device)
+    if mesh is not None:
+        check_serving_mesh(mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
     params = load_params(cfg, params, checkpoint_dir, device)
     if start_pieces is None:
         start_pieces = _silence(cfg, n)
-    prime = torch.as_tensor(np.asarray(start_pieces, np.int32), device=device)
+    start_pieces = np.asarray(start_pieces, np.int32)
     prime_len = cfg.receptive_field + max(cfg.dilations) if backend == "fused" else 1
-    if prime.ndim != 2 or prime.shape[0] != n or prime.shape[1] < prime_len:
+    if start_pieces.ndim != 2 or start_pieces.shape[0] != n or start_pieces.shape[1] < prime_len:
         raise ValueError(f"start_pieces must be [n={n}, >={prime_len}] (backend={backend!r})")
+    rows = slice(0, n) if mesh is None else mesh_rows(mesh, n)
+    prime = torch.as_tensor(start_pieces[rows], device=device)
     n_steps = int(duration * sr)
-    if backend == "scan":
-        codes = _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed)
-    else:
-        codes = _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode, temperature,
-                              seed)
+    codes = torch.zeros((n, n_steps), dtype=torch.int32, device=device)
+    if rows.stop > rows.start and backend == "scan":
+        codes[rows] = _scan_decode(params, prime, cfg, n_steps, sample_mode, temperature, seed)
+    elif rows.stop > rows.start:
+        codes[rows] = _fused_decode(params, prime, cfg, n_steps, dtype, sample_mode,
+                                    temperature, seed, row0=rows.start)
     audio = mu_law_decode(codes, cfg.quantization_channels).cpu().numpy()
     if out_dir is not None:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        for i in range(n):
+        for i in range(rows.start, rows.stop):
             wavio.write_wav(out_dir / f"gen_{i:03d}.wav", audio[i], sr)
     return audio

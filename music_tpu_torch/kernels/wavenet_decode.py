@@ -22,8 +22,11 @@ row gathers):
   on the host from the prime, the kernel draws the rest.
 
 Categorical mode draws Gumbel-max with Philox4x32-10 (``ops/philox.py``):
-token ``k`` of stream row ``r`` uses key ``(seed, r)`` and counter
-``(lane block, k)``, on the card and in the plain version alike.
+token ``k`` of stream row ``r`` uses key ``(seed, row0 + r)`` and counter
+``(lane block, k)``, on the card and in the plain version alike; ``row0``
+(default 0) is the global row of the launch's first stream, so the ranks
+of a data mesh, each decoding its own rows, draw what one launch of all
+the rows would.
 """
 
 from __future__ import annotations
@@ -187,7 +190,7 @@ def _sample_scores(logits, rows, step, sample_mode, temperature, seed, q):
 @torch.no_grad()
 def _collect_prime_state(
     params: dict, prime: torch.Tensor, cfg: WaveNetConfig,
-    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0,
+    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0, row0: int = 0,
 ):
     """Parallel prime: a conv forward over the prime fills the rings and
     draws the first token.
@@ -216,7 +219,7 @@ def _collect_prime_state(
             x = conv1x1(_gate(fg), p32["dense"][i]) + x[:, -fg.shape[1]:]
             o += d
         logits = forward(p32, prime[:, -cfg.receptive_field:], cfg)[:, -1]
-    rows = torch.arange(B, device=prime.device)
+    rows = row0 + torch.arange(B, device=prime.device)
     scores = _sample_scores(
         logits, rows, 0, sample_mode, temperature, seed, cfg.quantization_channels
     )
@@ -227,7 +230,7 @@ def _collect_prime_state(
 def prepare(
     params: dict, prime: torch.Tensor, *, cfg: WaveNetConfig, n_streams: int,
     n_stream_groups: int = 1, dtype: torch.dtype = torch.float32,
-    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0,
+    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0, row0: int = 0,
 ):
     """Pad the prime rows to ``n_streams * n_stream_groups`` and build the
     kernel inputs ``(weights, ring, s0, prev0)``."""
@@ -240,7 +243,8 @@ def prepare(
     if B < total:
         prime = torch.cat([prime, prime[-1:].expand(total - B, -1)], dim=0)
     ring, s0, prev0 = _collect_prime_state(
-        params, prime, cfg, sample_mode=sample_mode, temperature=temperature, seed=seed
+        params, prime, cfg, sample_mode=sample_mode, temperature=temperature, seed=seed,
+        row0=row0,
     )
     return _build_kernel_weights(params, cfg, dtype), ring, s0, prev0
 
@@ -249,7 +253,7 @@ def prepare(
 def decode_reference(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, dtype: torch.dtype = torch.float32,
-    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0,
+    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0, row0: int = 0,
     forced: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the CUDA kernel, on any device.
@@ -285,7 +289,7 @@ def decode_reference(
         s0 = forced[:, 0]
     all_logits = []
     cur, prev = s0.long(), prev0.long()
-    rows = torch.arange(B, device=ring.device)
+    rows = row0 + torch.arange(B, device=ring.device)
     with full_fp32():
         for t in range(n_steps - 1):
             x = rnd(wf["ecur"][cur] + wf["eprev"][prev])
@@ -363,7 +367,8 @@ def decode_cuda(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, n_streams: int,
     dtype: torch.dtype = torch.float32, sample_mode: str = "argmax",
-    temperature: float = 1.0, seed: int = 0, spans: torch.Tensor | None = None,
+    temperature: float = 1.0, seed: int = 0, row0: int = 0,
+    spans: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (same arguments and
     result as :func:`decode_reference`).  Raises on anything it does not
@@ -421,7 +426,8 @@ def decode_cuda(
                 out=torch.empty((B, n_steps), dtype=torch.int32, device=device))
     if spans is not None:
         ptrs["spans"] = spans
-    dims_a, offs_a, ptrs_a = launch_args([L, Cr, Cd, Cs, Q, ring_len, 1, 1], offsets, ptrs)
+    dims_a, offs_a, ptrs_a = launch_args([L, Cr, Cd, Cs, Q, ring_len, 1, 1, row0], offsets,
+                                         ptrs)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -447,19 +453,21 @@ def generate_tokens_fused(
     sample_mode: str = "argmax",
     temperature: float = 1.0,
     seed: int = 0,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Generate ``n_steps`` codes per stream after priming with ``prime``
     ``[B, P]`` (``B <= n_streams * n_stream_groups``, ``P >=
     receptive_field + max dilation``).  Returns ``[B, n_steps]`` int32.
+    ``row0``: the global row of ``prime``'s first (categorical draws).
 
     Runs the CUDA kernel when ``prime`` lies on a CUDA device and its
     plain version (:func:`decode_reference`) when it lies on the CPU."""
     B = prime.shape[0]
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, sample_mode=sample_mode,
-              temperature=temperature, seed=seed)
+              temperature=temperature, seed=seed, row0=row0)
     w, ring, s0, prev0 = prepare(
         params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
-        dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed,
+        dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed, row0=row0,
     )
     if prime.device.type == "cuda":
         out = decode_cuda(w, ring, s0, prev0, n_streams=n_streams, **kw)

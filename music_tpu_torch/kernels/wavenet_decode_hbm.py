@@ -256,7 +256,7 @@ def prepare(
     n_stream_groups: int = 1, dtype: torch.dtype = torch.float32,
     weight_dtype: torch.dtype | None = None, int8_matmul: bool = False,
     act_scales: tuple | None = None, sample_mode: str = "argmax",
-    temperature: float = 1.0, seed: int = 0,
+    temperature: float = 1.0, seed: int = 0, row0: int = 0,
 ):
     """Pad the prime rows to ``n_streams * n_stream_groups`` and build the
     kernel inputs ``(weights, ring, s0, prev0)``; the prime state is
@@ -268,7 +268,7 @@ def prepare(
     _check_modes(cfg, weight_dtype, int8_matmul, act_scales)
     _, ring, s0, prev0 = wavenet_decode.prepare(
         params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
-        dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed,
+        dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed, row0=row0,
     )
     w = with_chain_packs(_build_hbm_weights(params, cfg, dtype, weight_dtype))
     if int8_matmul:
@@ -304,7 +304,7 @@ def decode_reference(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, dtype: torch.dtype = torch.float32,
     int8_matmul: bool = False, sample_mode: str = "argmax", temperature: float = 1.0,
-    seed: int = 0, forced: torch.Tensor | None = None,
+    seed: int = 0, row0: int = 0, forced: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the CUDA kernel, on any device.
 
@@ -338,7 +338,7 @@ def decode_reference(
         s0 = forced[:, 0]
     all_logits = []
     cur, prev = s0.long(), prev0.long()
-    rows = torch.arange(B, device=ring.device)
+    rows = row0 + torch.arange(B, device=ring.device)
     with full_fp32():
         for t in range(n_steps - 1):
             x = rnd(wf["ecur"][cur] + wf["eprev"][prev])
@@ -483,7 +483,8 @@ def launch(entry, dtype: torch.dtype, mode: int, n_streams: int, dims: tuple, of
            nbytes: int, tensors: dict, n_steps: int, sample_mode: int = 0,
            temperature: float = 1.0, seed: int = 0) -> int:
     """Call a weight-streaming C entry point on the current stream of the
-    ring's device: ``dims = (L, Cr, Cd, Cs, Q, ring_len, F, pool)``,
+    ring's device: ``dims = (L, Cr, Cd, Cs, Q, ring_len, F, pool)`` and
+    for WaveNet ``row0``,
     ``tensors`` the checked inputs by :data:`POINTERS` name (those missing
     pass null).  Returns the entry point's CUDA error code."""
     ring = tensors["ring"]
@@ -495,7 +496,7 @@ def launch(entry, dtype: torch.dtype, mode: int, n_streams: int, dims: tuple, of
         stream = torch.cuda.current_stream(ring.device).cuda_stream
         return entry(
             _DTYPES[dtype], mode, n_streams, ring.shape[0] // n_streams,
-            ctypes.cast((ctypes.c_int * 8)(*dims), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p),
             ctypes.cast(offsets, ctypes.c_void_p), nbytes, ctypes.cast(ptrs, ctypes.c_void_p),
             n_steps, sample_mode, float(temperature), seed & 0xFFFFFFFF, stream,
         )
@@ -505,7 +506,7 @@ def decode_cuda(
     w: dict, ring: torch.Tensor, s0: torch.Tensor, prev0: torch.Tensor, *,
     cfg: WaveNetConfig, n_steps: int, n_streams: int, dtype: torch.dtype = torch.float32,
     int8_matmul: bool = False, sample_mode: str = "argmax", temperature: float = 1.0,
-    seed: int = 0, spans: torch.Tensor | None = None,
+    seed: int = 0, row0: int = 0, spans: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (same arguments and
     result as :func:`decode_reference`).  Raises on anything it does not
@@ -540,7 +541,8 @@ def decode_cuda(
     if spans is not None:
         tensors["spans"] = spans
     lib = _library()
-    rc = launch(lib.wavenet_decode_hbm, dtype, mode, n_streams, (L, Cr, Cd, Cs, Q, ring_len, 1, 1),
+    rc = launch(lib.wavenet_decode_hbm, dtype, mode, n_streams,
+                (L, Cr, Cd, Cs, Q, ring_len, 1, 1, row0),
                 offsets, nbytes, tensors, n_steps, {"argmax": 0, "categorical": 1}[sample_mode],
                 temperature, seed)
     if rc != 0:
@@ -565,6 +567,7 @@ def generate_tokens_fused_hbm(
     sample_mode: str = "argmax",
     temperature: float = 1.0,
     seed: int = 0,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Generate ``n_steps`` codes per stream after priming with ``prime``
     ``[B, P]`` (``B <= n_streams * n_stream_groups``, ``P >=
@@ -582,9 +585,10 @@ def generate_tokens_fused_hbm(
         params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
         dtype=dtype, weight_dtype=weight_dtype, int8_matmul=int8_matmul,
         act_scales=act_scales, sample_mode=sample_mode, temperature=temperature, seed=seed,
+        row0=row0,
     )
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, int8_matmul=int8_matmul,
-              sample_mode=sample_mode, temperature=temperature, seed=seed)
+              sample_mode=sample_mode, temperature=temperature, seed=seed, row0=row0)
     if prime.device.type == "cuda":
         out = decode_cuda(w, ring, s0, prev0, n_streams=n_streams, **kw)
     else:

@@ -152,17 +152,19 @@ def _bias(params: dict, cfg: WaveNetConfig, name: str, i: int | None = None):
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
-            fuse_taps: bool = False, skip_block: int = 0) -> torch.Tensor:
+            fuse_taps: bool = False, skip_block: int = 0, split=None) -> torch.Tensor:
     """Logits ``[B, T - receptive_field + 1, Q]`` over int codes ``[B, T]``:
     the prediction for the sample after each full receptive field.
     ``fuse_taps`` contracts each layer's taps in one matmul and
     ``skip_block`` > 1 the skip products of that many layers in one (the
-    trainer's forms; same math, reassociated adds)."""
+    trainer's forms; same math, reassociated adds).  ``split``: see
+    :func:`_forward_from_causal`."""
     T = tokens.shape[1]
     if T - cfg.receptive_field + 1 <= 0:
         raise ValueError(f"sequence length {T} < receptive field {cfg.receptive_field}")
     x = token_causal_conv(tokens, params["causal"], _bias(params, cfg, "causal_b"))
-    return _forward_from_causal(params, x, cfg, fuse_taps=fuse_taps, skip_block=skip_block)
+    return _forward_from_causal(params, x, cfg, fuse_taps=fuse_taps, skip_block=skip_block,
+                                split=split)
 
 
 def forward_onehot(params: dict, wave: torch.Tensor, cfg: WaveNetConfig) -> torch.Tensor:
@@ -173,7 +175,8 @@ def forward_onehot(params: dict, wave: torch.Tensor, cfg: WaveNetConfig) -> torc
 
 
 def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
-                         fuse_taps: bool = False, skip_block: int = 0) -> torch.Tensor:
+                         fuse_taps: bool = False, skip_block: int = 0,
+                         split=None) -> torch.Tensor:
     """The layers after the causal conv: ``x [B, T - fw + 1, Cr]`` ->
     logits ``[B, T - receptive_field + 1, Q]``.
 
@@ -181,9 +184,16 @@ def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
     ``[B·T, K·Cd] x [K·Cd, Cs]`` product a block of K layers (the last
     block may be shorter), with the block's skip biases summed: the
     per-layer sum reassociated, as the JAX trainer's ``skip_block`` (and
-    ``stack_skips``, K = L)."""
+    ``stack_skips``, K = L).
+
+    ``split`` (:class:`music_tpu_torch.parallel.collectives.ModelSplit`)
+    runs the skip path split over ranks, as the JAX trainer's ``model``
+    axis: ``params`` hold this rank's columns of ``skip`` (and ``skip_b``)
+    and rows of ``post1``; ``split.enter`` takes each skip product's input
+    and ``split.exit`` sums ``post1``'s partial products before its bias."""
     out_width = x.shape[1] + cfg.filter_width - cfg.receptive_field
     L, Cd = cfg.n_blocks, cfg.dilation_channels
+    enter = split.enter if split is not None else (lambda v: v)
     skip_total, zs = None, []
     for i, d in enumerate(cfg.dilations):
         fg = dilated_causal_conv(x, params["fg"][i], _bias(params, cfg, "fg_b", i), dilation=d,
@@ -197,31 +207,35 @@ def _forward_from_causal(params: dict, x: torch.Tensor, cfg: WaveNetConfig, *,
                 continue
             k0 = i + 1 - len(zs)
             w = params["skip"][k0:i + 1].reshape(len(zs) * Cd, -1)
-            skip = conv1x1(torch.cat(zs, dim=-1), w)
+            skip = conv1x1(enter(torch.cat(zs, dim=-1)), w)
             if cfg.use_bias:
                 skip = skip + params["skip_b"][k0:i + 1].sum(dim=0)
             zs = []
         else:
-            skip = conv1x1(z[:, -out_width:, :], params["skip"][i],
+            skip = conv1x1(enter(z[:, -out_width:, :]), params["skip"][i],
                            _bias(params, cfg, "skip_b", i))
         skip_total = skip if skip_total is None else skip_total + skip
-    h = torch.relu(skip_total)
-    h = torch.relu(conv1x1(h, params["post1"], _bias(params, cfg, "post1_b")))
-    return conv1x1(h, params["post2"], _bias(params, cfg, "post2_b"))
+    h = conv1x1(torch.relu(skip_total), params["post1"])
+    if split is not None:
+        h = split.exit(h)
+    if cfg.use_bias:
+        h = h + params["post1_b"]
+    return conv1x1(torch.relu(h), params["post2"], _bias(params, cfg, "post2_b"))
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: WaveNetConfig, *,
             fuse_taps: bool = False, compute_dtype: torch.dtype | None = None,
-            skip_block: int = 0) -> torch.Tensor:
+            skip_block: int = 0, split=None) -> torch.Tensor:
     """Next-sample cross entropy: ``tokens[:, receptive_field:]`` are the
     targets of the logits at positions ``[:-1]``.  With ``compute_dtype``
     (mixed precision, e.g. ``torch.bfloat16``) the parameters are cast to
     it inside the loss, so their gradients stay in the master dtype, and
-    the log-softmax runs in float32.  ``skip_block``: see
+    the log-softmax runs in float32.  ``skip_block``, ``split``: see
     :func:`_forward_from_causal`."""
     if compute_dtype is not None:
         params = {k: v.to(compute_dtype) for k, v in params.items()}
-    logits = forward(params, tokens[:, :-1], cfg, fuse_taps=fuse_taps, skip_block=skip_block)
+    logits = forward(params, tokens[:, :-1], cfg, fuse_taps=fuse_taps, skip_block=skip_block,
+                     split=split)
     targets = tokens[:, cfg.receptive_field:].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, targets[..., None]).mean()

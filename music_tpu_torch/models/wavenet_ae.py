@@ -205,6 +205,7 @@ def decode(
     cfg: WaveNetAEConfig,
     output_width: int,
     start: int | torch.Tensor | None = None,
+    split=None,
 ) -> torch.Tensor:
     """Conditioned decoder: ``[B, T]`` codes + ``[B, F, W]`` encoding ->
     logits ``[B, output_width, Q]``.
@@ -212,8 +213,13 @@ def decode(
     ``start=None`` conditions by the reference's ratio-based upsample.
     Otherwise ``start`` (an int or a ``[B]`` tensor) is the absolute time
     of ``tokens[:, 0]``, and a position at absolute time ``t`` takes frame
-    ``min(t // pool, F - 1)``."""
+    ``min(t // pool, F - 1)``.  ``split``
+    (:class:`music_tpu_torch.parallel.collectives.ModelSplit`) runs the
+    skip path split over ranks: ``params`` hold this rank's columns of
+    ``skip`` and rows of ``conn1``, ``split.enter`` takes each skip
+    product's input and ``split.exit`` sums ``conn1``'s partial products."""
     Cd, pool = cfg.de_dilation_channel, cfg.en_pool_kernel_size
+    enter = split.enter if split is not None else (lambda v: v)
     T = tokens.shape[1]
     x = token_causal_conv(tokens, params["de_causal"])
     skip_total = None
@@ -222,9 +228,11 @@ def decode(
         cond = _cond_rows(encoding, fg.shape[1], T - fg.shape[1], start, pool)
         z = gate(fg + conv1x1(cond, params["cond_fg"][i]), Cd)
         x = conv1x1(z, params["dense"][i]) + x[:, -z.shape[1]:, :]
-        skip = conv1x1(z[:, -output_width:, :], params["skip"][i])
+        skip = conv1x1(enter(z[:, -output_width:, :]), params["skip"][i])
         skip_total = skip if skip_total is None else skip_total + skip
     h = conv1x1(torch.relu(skip_total), params["conn1"])
+    if split is not None:
+        h = split.exit(h)
     cond = _cond_rows(encoding, output_width, T - output_width, start, pool)
     h = torch.relu(h + conv1x1(cond, params["cond_post"]))
     return conv1x1(h, params["conn2"])

@@ -50,20 +50,20 @@ def tie_aware_check(tokens, logits_fn, tol: float) -> dict:
 @torch.no_grad()
 def teacher_forced_scores(
     params: dict, prime: torch.Tensor, tokens: torch.Tensor, cfg: WaveNetConfig, *,
-    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0,
+    sample_mode: str = "argmax", temperature: float = 1.0, seed: int = 0, row0: int = 0,
 ) -> torch.Tensor:
     """Scores ``[B, n, Q]`` the plain model gives each of ``tokens [B, n]``
     after ``prime [B, P]`` and the tokens before it, by one parallel
     forward in full float32.  In categorical mode they carry the fused
     decode's Philox Gumbel noise (token ``k`` of row ``r``: counter ``k``,
-    key ``(seed, r)``), so the scores' argmax is the token the decode
-    should draw."""
+    key ``(seed, row0 + r)``), so the scores' argmax is the token the
+    decode should draw."""
     P = prime.shape[1]
     seq = torch.cat([prime.long(), tokens[:, :-1].long().to(prime.device)], dim=1)
     p32 = {k: v.float() for k, v in params.items()}
     with full_fp32():
         logits = forward(p32, seq[:, P - cfg.receptive_field:], cfg)  # [B, n, Q]
-    return with_decode_noise(logits, 0, sample_mode, temperature, seed)
+    return with_decode_noise(logits, 0, sample_mode, temperature, seed, row0)
 
 
 def reference_scores(
@@ -115,14 +115,14 @@ def ae_reference_scores(inputs: tuple, tokens: torch.Tensor, cfg: wavenet_ae.Wav
                                    forced=tokens)
 
 
-def with_decode_noise(logits, first_step, sample_mode, temperature, seed):
-    """``logits [B, n, Q]`` of tokens ``first_step ..`` (a torch tensor),
-    plus the fused decode's Gumbel noise in categorical mode: their argmax
-    is the token the decode draws."""
+def with_decode_noise(logits, first_step, sample_mode, temperature, seed, row0=0):
+    """``logits [B, n, Q]`` of tokens ``first_step ..`` (a torch tensor)
+    of the rows ``row0 ..``, plus the fused decode's Gumbel noise in
+    categorical mode: their argmax is the token the decode draws."""
     if sample_mode == "argmax":
         return logits
     B, n, q = logits.shape
-    rows = torch.arange(B, device=logits.device)
+    rows = row0 + torch.arange(B, device=logits.device)
     noise = torch.stack(
         [gumbel(decode_uniforms(seed, rows, first_step + k, q)) for k in range(n)], dim=1
     )

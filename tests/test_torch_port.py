@@ -26,13 +26,17 @@ from music_tpu_torch.generate import wavenet_generate as wngen
 from music_tpu_torch.models import crnngan as cg
 from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.models import wavenet_ae as ae
+from music_tpu_torch.generate import serving
 from music_tpu_torch.ops.mulaw import mu_law_encode
+from music_tpu_torch.parallel import mesh as pmesh
+from music_tpu_torch.parallel import multihost
 from music_tpu_torch.runs import cli_journey_run as journey_run
 from music_tpu_torch.runs import wavenet_ae_quality_run as ae_run
 from music_tpu_torch.runs import wavenet_poly_quality_run as poly_run
 from music_tpu_torch.train import crnngan_train as cgtrain
 from music_tpu_torch.train import leakgan_train as lgtrain
 from music_tpu_torch.train import seqgan_train as sgtrain
+from music_tpu_torch.train import wavenet_train as wtrain
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "music_tpu_torch"
@@ -216,6 +220,21 @@ ENTRY_POINTS = {
     "runs wavenet_poly_quality_run": lambda tmp: poly_run.main(["--out", str(tmp / "ck")]),
     "runs wavenet_ae_quality_run": lambda tmp: ae_run.main(["--out", str(tmp / "ck")]),
     "runs cli_journey_run": lambda tmp: journey_run.main(["--workdir", str(tmp / "ck")]),
+    "make_mesh": lambda tmp: pmesh.make_mesh(pmesh.MeshSpec()),
+    "wavenet train(mesh)": lambda tmp: wtrain.train(
+        wavenet_params={}, dataset_params={}, train_params={},
+        mesh=pmesh.make_mesh(pmesh.MeshSpec(data=-1))),
+    "wavenet train(coordinator)": lambda tmp: wtrain.train(
+        wavenet_params={}, dataset_params={},
+        train_params={"coordinator": "127.0.0.1:1", "num_processes": 1, "process_id": 0}),
+    "wavenet generate_batch(mesh)": lambda tmp: wngen.generate_batch(
+        cfg=wn.WaveNetConfig(), params={}, n=2, mesh=pmesh.make_mesh()),
+    "DecodeSession(mesh)": lambda tmp: serving.DecodeSession(
+        wn.WaveNetConfig(), {}, mesh=pmesh.make_mesh()),
+    "multihost.initialize": lambda tmp: multihost.initialize("127.0.0.1:1", 1, 0),
+    "CLI wavenet train --coordinator": lambda tmp: cli.main(
+        ["wavenet", "train", "--coordinator", "127.0.0.1:1", "--num-processes", "1",
+         "--process-id", "0"]),
 }
 
 

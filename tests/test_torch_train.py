@@ -222,9 +222,10 @@ def test_filter_width_3_trains(tmp_path):
 
 
 def test_train_refusals(tmp_path):
-    """Out-of-range codes raise before any step; multi-process raises and
-    names ROADMAP; without ``device`` (or ``--device``) training asks for
-    CUDA and raises on a host without it."""
+    """Out-of-range codes raise before any step; multi-process params
+    without a process id raise before any connection; without ``device``
+    (or ``--device``) training asks for CUDA and raises on a host without
+    it."""
     ds = {"audio_path": str(_pickle_clips(tmp_path / "np_audio.pkl", q=256)),
           "window_length": 32, "batch_size": 8}
     tp = {"log_dir": str(tmp_path / "logs"), "restore_dir": str(tmp_path / "ckpt")}
@@ -233,7 +234,7 @@ def test_train_refusals(tmp_path):
     with pytest.raises(ValueError, match="quantization_channels=32"):
         taetrain.train(model_params=TINY_AE, dataset_params=ds, train_params=tp, device="cpu")
     assert not (tmp_path / "ckpt").exists()
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="process_id"):
         ttrain.train(wavenet_params=TINY_WN, dataset_params=ds, device="cpu",
                      train_params=dict(tp, coordinator="localhost:1234", num_processes=2))
     if torch.cuda.is_available():
