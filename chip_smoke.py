@@ -117,8 +117,8 @@ float32 matmuls in full float32):
 
 19. ``seqgan train`` (``params/seqgan``: V = 5000, E = H = 32, T = 20, batch
     64, rollout 16, D of 1720 filters) in a temporary working directory:
-    the oracle corpus, MLE pretraining, D pretraining and the shipped 2
-    adversarial rounds; both sample files checked and every loss and
+    the oracle corpus, MLE pretraining, D pretraining and 1 adversarial
+    round (the params ship 2); both sample files checked and every loss and
     oracle NLL finite; the seconds of each MLE epoch, PG step (with its
     rollout) and D phase; ``rollout_rewards`` alone for 19,456 streams (ms,
     peak memory), a PG step's device busy share (``torch.profiler``) and
@@ -127,7 +127,7 @@ float32 matmuls in full float32):
     noise (rewards within 1e-5, params and Adam state within 1e-5 of each
     leaf's scale);
 20. ``leakgan train`` (``params/leak_gan``: V = 5258, G = 1720, goal 16,
-    H = 32, T = 20, step 5, batch 64, rollout 4) on a 1,024-sequence corpus
+    H = 32, T = 20, step 5, batch 64, rollout 4) on a 512-sequence corpus
     that the target-LSTM oracle writes from a seed, one epoch of each phase,
     then again resuming from its checkpoint; the seconds of the pre, D and
     adv phases; ``get_rewards`` alone for 1,024 streams, an adv step's busy
@@ -140,7 +140,7 @@ matmuls in full float32):
 21. a corpus of 32 songs written from a seed (2 genres x 2 composers,
     120-200 notes each); ``crnngan train`` (``params/c_rnn_gan``: H = 350,
     noise 100, T = 100, batch 4, conditioned) with the epochs cut to 1
-    pretrain and 2 GAN epochs; ``crnngan generate`` from its checkpoint,
+    pretrain and 1 GAN epoch; ``crnngan generate`` from its checkpoint,
     read back as 100 notes; ms a pretrain and a GAN step, how many GAN
     steps trained or froze D and took feature matching or the adversarial
     loss, a step's device busy share and peak memory, the pretrain loss's
@@ -178,7 +178,18 @@ The mesh code path (``music_tpu_torch.parallel``):
     every gradient leaf in float64 within 1e-5 of one device's (one
     device's own float32 gradients lie further than that from float64's at
     window 40,000, which is printed), the float32 gaps and a float32
-    step's ms;
+    step's ms.  The GAN trainers at the shipped widths (SeqGAN V = 5000,
+    batch 64, rollout 16, the 1720-filter D; LeakGAN V = 5258, batch 64;
+    C-RNN-GAN H = 350, T = 100, batch 4, 4 meta columns): in (a) each on
+    the ``data=-1`` mesh against ``mesh=None`` from one state, one step of
+    each phase (SeqGAN MLE, D, PG; LeakGAN pretraining, D, adversarial;
+    C-RNN-GAN pretraining, GAN) twice, every loss equal to the bit, each
+    step's ms on both sides; in (b) on ``model=2`` every phase's step and
+    on ``data=2`` those without rollouts (the explicit draws a data rank
+    is handed would run to gigabytes of rollout noise), in float64 against
+    one device's: the losses and every leaf of the state within 1e-5
+    (LeakGAN's ``goal_init``, whose rows the data ranks share, left out on
+    ``data=2``);
 24. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
     launches counted over the main-path phases 4, 7, 10, 13, 17, 18, 22
@@ -504,15 +515,19 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
     cwd = os.getcwd()
     os.chdir(work_dir)
     try:
-        # -- 19. SeqGAN at the shipped width
+        # -- 19. SeqGAN at the shipped width, 1 adversarial round (the params
+        # ship 2; the script's time budget holds phase 23's GAN meshes too)
         t_phase = time.perf_counter()
-        p = load_params_dir(params_root / "seqgan")["params"]
+        p = {**load_params_dir(params_root / "seqgan")["params"], "adversarial_rounds": 1}
+        (work_dir / "seqgan_params").mkdir()
+        (work_dir / "seqgan_params" / "params.json").write_text(json.dumps(p))
         records, undo = timing_wrappers(dev, [
             (seqgan_train.SeqGanTrainer, "pretrain_generator"),
             (seqgan_train.SeqGanTrainer, "pg_step"),
             (seqgan_train.SeqGanTrainer, "train_discriminator")])
         try:
-            out = run_cli(dev, ["seqgan", "train", "--params-dir", str(params_root / "seqgan")])
+            out = run_cli(dev, ["seqgan", "train", "--params-dir",
+                                str(work_dir / "seqgan_params")])
         finally:
             undo()
         for line in out.splitlines():
@@ -594,7 +609,8 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
               f"{err_o:.2g} of their scale (tolerance 1e-5)", flush=True)
         seconds["19"] = time.perf_counter() - t_phase
 
-        # -- 20. LeakGAN at the shipped width on an oracle corpus of 1,024
+        # -- 20. LeakGAN at the shipped width on an oracle corpus of 512 (the
+        # script's time budget holds phase 23's GAN meshes too)
         t_phase = time.perf_counter()
         lp = load_params_dir(params_root / "leak_gan")
         lcfg = lg.LeakGanConfig.from_json(lp["leak_gan_params"])
@@ -602,7 +618,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
         oracle = leakgan_train.LeakGanTrainer(
             leakgan_train.LeakGanTrainConfig(cfg=lcfg, batch_size=ltp["batch_size"]),
             seed=20, device=dev)
-        corpus = oracle.oracle_samples(1024)
+        corpus = oracle.oracle_samples(512)
         np.save(work_dir / "corpus.npy", corpus)
         del oracle
         print(f"    (phase 20 at {time.perf_counter() - t_phase:.1f} s: the oracle corpus)",
@@ -739,7 +755,7 @@ def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = Non
     shipped = load_params_dir(params_root / "c_rnn_gan")
     params_dir = work_dir / "params"
     params_dir.mkdir()
-    cuts = {"pretrain_epochs": 1, "num_epochs": 2}
+    cuts = {"pretrain_epochs": 1, "num_epochs": 1}  # the script's time holds phase 23 too
     for name, cfg_json in (
             ("crnngan_params", shipped["crnngan_params"]),
             ("dataset_params", {**shipped["dataset_params"], "root_dir": str(work_dir / "midi")}),
@@ -769,9 +785,9 @@ def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = Non
     tr = records["CRnnGanTrainer"]
     pre_s, gan_s = records["CRnnGanTrainer.pre_step"], records["CRnnGanTrainer.gan_step"]
     steps = records["CRnnGanTrainer.gan_step out"]
-    if len(pre_s) != 32 // batch or len(gan_s) != 2 * 32 // batch:
+    if len(pre_s) != 32 // batch or len(gan_s) != cuts["num_epochs"] * 32 // batch:
         fail(f"[21] {len(pre_s)} pretrain and {len(gan_s)} GAN steps, want "
-             f"{32 // batch} and {2 * 32 // batch}")
+             f"{32 // batch} and {cuts['num_epochs'] * 32 // batch}")
     trained = sum(s.d_trained for s in steps)
     fm = sum(s.feature_matching for s in steps)
     ms = lambda xs: f"{1e3 * xs[0]:.1f} ms first, {1e3 * float(np.median(xs[1:])):.1f} median"
@@ -1025,6 +1041,341 @@ def _leaf_error(ours: dict, ref: dict) -> float:
                      / ref[k].double().abs().max().clamp_min(1e-30)) for k in ref)
 
 
+GAN_TRAINERS = ("seqgan", "leakgan", "crnngan")
+GAN_SEED = 23  # phase 23's GAN trainers: the init's seed; their draws come from seeded generators
+GAN_STATE = {  # each trainer's parameter trees and optimizer states
+    "seqgan": (("oracle_params", "g_params", "d_params"), ("g_opt", "d_opt")),
+    "leakgan": (("oracle_params", "g_params", "d_params"), ("m_opt", "w_opt", "d_opt")),
+    "crnngan": (("g_params", "d_params"), ("g_opt", "d_opt")),
+}
+GAN_GLOO_SHAPES = ((2, 1, 1), (1, 1, 2))  # phase 23(b)'s GAN meshes of the two gloo ranks
+
+
+def gan_mesh_configs(config: str = "shipped") -> dict:
+    """Phase 23's GAN trainer configurations: the shipped params' widths
+    (SeqGAN V = 5000, T = 20, batch 64, rollout 16, the 1720-filter D;
+    LeakGAN V = 5258, batch 64, rollout 4; C-RNN-GAN H = 350, T = 100,
+    batch 4, conditioned on 4 meta columns), or tiny ones for a CPU
+    rehearsal."""
+    from music_tpu_torch.core.config import load_params_dir
+    from music_tpu_torch.models import crnngan as cg
+    from music_tpu_torch.models import leakgan as lg
+    from music_tpu_torch.models import seqgan as sg
+    from music_tpu_torch.train import crnngan_train, leakgan_train, seqgan_train
+
+    if config == "tiny":
+        return {
+            "seqgan": seqgan_train.SeqGanConfig(
+                g=sg.GeneratorConfig(vocab_size=50, emb_dim=8, hidden_dim=8, seq_len=10),
+                d=sg.DiscriminatorConfig(vocab_size=50, emb_dim=8, filter_sizes=(1, 2, 3),
+                                         num_filters=(8, 8, 8), seq_len=10),
+                batch_size=4, rollout_num=2),
+            "leakgan": leakgan_train.LeakGanTrainConfig(
+                cfg=lg.LeakGanConfig(vocab_size=40, seq_len=10, goal_size=4, worker_emb_dim=8,
+                                     worker_hidden=8, manager_hidden=8, dis_emb_dim=8,
+                                     filter_sizes=(1, 2, 3), num_filters=(8, 8, 16)),
+                batch_size=4, rollout_num=2),
+            "crnngan": crnngan_train.CRnnGanTrainConfig(
+                cfg=cg.CRnnGanConfig(noise_dim=4, hidden_dim=8, song_length=6, meta_dim=4),
+                batch_size=4),
+        }
+    root = ROOT / "music_tpu_torch" / "params"
+    p = load_params_dir(root / "seqgan")["params"]
+    lp = load_params_dir(root / "leak_gan")
+    tp = lp["train_params"]
+    cp = load_params_dir(root / "c_rnn_gan")
+    return {
+        "seqgan": seqgan_train.SeqGanConfig(
+            g=sg.GeneratorConfig(vocab_size=p["vocab_size"], emb_dim=p["emb_dim"],
+                                 hidden_dim=p["hidden_dim"], seq_len=p["seq_len"],
+                                 start_token=p["start_token"]),
+            d=sg.DiscriminatorConfig(vocab_size=p["vocab_size"], seq_len=p["seq_len"]),
+            batch_size=p["batch_size"], generated_num=p["generated_num"],
+            rollout_num=p["rollout_num"], g_lr=p["g_lr"], d_lr=p["d_lr"]),
+        "leakgan": leakgan_train.LeakGanTrainConfig(
+            cfg=lg.LeakGanConfig.from_json(lp["leak_gan_params"]), batch_size=tp["batch_size"],
+            m_lr=tp["m_lr"], w_lr=tp["w_lr"], d_lr=tp["d_lr"],
+            decay_step_size=tp["decay_step_size"], decay_rate=tp["decay_rate"],
+            rollout_num=tp["rollout_num"], generated_num=tp["generated_num"]),
+        "crnngan": crnngan_train.CRnnGanTrainConfig(
+            cfg=dataclasses.replace(cg.CRnnGanConfig.from_json(cp["crnngan_params"]),
+                                    meta_dim=4),
+            batch_size=cp["dataset_params"]["batch_size"], g_lr=cp["train_params"]["g_lr"],
+            d_lr=cp["train_params"]["d_lr"]),
+    }
+
+
+def _gan_trainer(name: str, cfgs: dict, device, mesh=None, batch: int | None = None,
+                 dtype=None):
+    """GAN trainer ``name`` from ``GAN_SEED`` on ``mesh`` (or one ``device``),
+    ``batch`` rows a data rank (default the configuration's), its
+    parameters and Adam moments cast to ``dtype`` when given."""
+    from music_tpu_torch.core import optim
+    from music_tpu_torch.parallel import gan_tp
+    from music_tpu_torch.train import crnngan_train, leakgan_train, seqgan_train
+
+    cls = {"seqgan": seqgan_train.SeqGanTrainer, "leakgan": leakgan_train.LeakGanTrainer,
+           "crnngan": crnngan_train.CRnnGanTrainer}[name]
+    cfg = cfgs[name] if batch is None else dataclasses.replace(cfgs[name], batch_size=batch)
+    tr = cls(cfg, seed=GAN_SEED, mesh=mesh, device=device)
+    if dtype is not None:
+        params, opts = GAN_STATE[name]
+        cast = lambda tree: optim.tree_map(lambda x: x.to(dtype), tree)
+        for k in params:
+            setattr(tr, k, cast(getattr(tr, k)))
+        for k in opts:
+            setattr(tr, k, gan_tp.map_param_trees(getattr(tr, k), cast))
+    return tr
+
+
+def _gan_state(name: str, tr) -> dict:
+    """A trainer's parameters and optimizer states whole (split leaves
+    gathered: every rank of its mesh calls this), ``{key path: CPU tensor}``."""
+    from music_tpu_torch.core import checkpoint
+    from music_tpu_torch.parallel import gan_tp
+
+    params, opts = GAN_STATE[name]
+    state = {k: getattr(tr, k) for k in params + opts}
+    if name == "seqgan":  # the one trainer without state()
+        whole = lambda tree: tr.par.gather(tree, tr.d_specs)
+        state.update(d_params=whole(tr.d_params),
+                     d_opt=gan_tp.map_param_trees(tr.d_opt, whole))
+    else:
+        state.update(tr.state())
+    return {p: v.detach().cpu() for p, v in checkpoint._flatten(state) if hasattr(v, "detach")}
+
+
+def gan_draws(name: str, cfgs: dict, batch: int, seed: int, explicit: bool) -> dict:
+    """The inputs of phase 23's steps of trainer ``name`` for a global batch
+    of ``batch`` rows: data (numpy, from ``seed``) and, with ``explicit``,
+    the noise and dropout masks the steps would draw (so that data ranks
+    can be handed their rows), else the seeds of the generators they draw
+    from.  Explicit draws leave out the rollout steps (SeqGAN's PG,
+    LeakGAN's adversarial step), whose rollout noise runs to gigabytes at
+    the shipped width."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cfg = cfgs[name]
+    d = {}
+    if name == "seqgan":
+        V, T, F = cfg.g.vocab_size, cfg.g.seq_len, cfg.d.feature_dim
+        d.update(mle=rng.integers(0, V, (batch, T)), d=rng.integers(0, V, (batch, T)),
+                 labels=rng.integers(0, 2, batch))
+        if explicit:
+            d["d_mask"] = rng.uniform(size=(batch, F)) < 1 - cfg.d.dropout
+        else:
+            d.update(d_seed=seed + 1, pg_seed=seed + 2)
+    elif name == "leakgan":
+        c = cfg.cfg
+        V, T, F = c.vocab_size, c.seq_len, c.goal_out_size
+        d.update(pre=rng.integers(0, V, (batch, T)), d=rng.integers(0, V + 1, (batch, T)),
+                 labels=rng.integers(0, 2, batch))
+        if explicit:
+            d["pre_noise"] = rng.gumbel(size=(T + 1, batch, V)).astype(np.float32)
+            d["pre_mask"] = rng.uniform(size=(T + 1, batch, F)) < 1 - c.dropout
+            d["d_mask"] = rng.uniform(size=(batch, F)) < 1 - c.dropout
+        else:
+            d.update(pre_seed=seed + 1, d_seed=seed + 2, adv_seed=seed + 3)
+    else:
+        c = cfg.cfg
+        T, n_f = c.song_length, c.num_song_features
+        d.update(pre=rng.normal(size=(batch, T, n_f)).astype(np.float32),
+                 gan=rng.normal(size=(batch, T, n_f)).astype(np.float32),
+                 meta=np.eye(c.meta_dim, dtype=np.float32)[rng.integers(0, c.meta_dim, batch)])
+        if explicit:
+            d["pre_noise"] = rng.uniform(size=(1, T, batch, c.noise_dim)).astype(np.float32)
+            d["gan_noise"] = rng.uniform(size=(3, T, batch, c.noise_dim)).astype(np.float32)
+        else:
+            d.update(pre_seed=seed + 1, gan_seed=seed + 2)
+    return d
+
+
+def gan_steps(name: str, tr, draws: dict, rows: slice, dev) -> list:
+    """One step of each phase of trainer ``name`` on ``rows`` of the draws
+    (a data rank's; every row on one device): ``[(step, values, ms)]``, the
+    values the step's losses as floats (C-RNN-GAN's GAN step: also D's
+    accuracy and the two branches), each step timed with the device
+    synchronised."""
+    import numpy as np
+    import torch
+
+    def mine(key, axis=0):
+        x = draws[key]
+        idx = [slice(None)] * x.ndim
+        idx[axis] = rows
+        return torch.from_numpy(np.ascontiguousarray(x[tuple(idx)])).to(dev)
+
+    def gen(key, offset=0):
+        return torch.Generator(device=dev).manual_seed(draws[key] + offset)
+
+    def drawn(mask_key, seed_key, **explicit):
+        if mask_key in draws:
+            return {"dropout_mask": mine(mask_key, explicit.get("axis", 0)),
+                    **{k: mine(v, 1) for k, v in explicit.get("noise", {}).items()}}
+        return {"dropout_generator": gen(seed_key),
+                **({"generator": gen(seed_key, 1)} if explicit.get("noise") else {})}
+
+    out = []
+
+    def step(label, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        values = fn()
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        values = values if isinstance(values, tuple) else (values,)
+        out.append((label, tuple(float(v) for v in values), ms))
+
+    if name == "seqgan":
+        step("MLE", lambda: tr.mle_step(mine("mle")))
+        step("D", lambda: tr.d_step(mine("d"), mine("labels"), **drawn("d_mask", "d_seed")))
+        if "pg_seed" in draws:
+            step("PG", lambda: tr.pg_step(generator=gen("pg_seed"))[0])
+    elif name == "leakgan":
+        kw = drawn("pre_mask", "pre_seed", axis=1, noise={"noise": "pre_noise"})
+        step("pre", lambda: tr.pre_step(mine("pre"), **kw))
+        step("D", lambda: tr.d_step(mine("d"), mine("labels"), **drawn("d_mask", "d_seed")))
+        if "adv_seed" in draws:
+            step("adv", lambda: tr.adv_step(generator=gen("adv_seed")))
+    else:
+        meta = mine("meta")
+        noise = lambda key: ({"noise": mine(f"{key}_noise", 2)} if f"{key}_noise" in draws
+                             else {"generator": gen(f"{key}_seed")})
+        step("pretrain", lambda: tr.pre_step(mine("pre"), meta, **noise("pre")))
+
+        def gan():
+            s = tr.gan_step(mine("gan"), meta, **noise("gan"))
+            return s.g_loss, s.d_loss, s.d_acc, s.d_trained, s.feature_matching
+
+        step("GAN", gan)
+    return out
+
+
+def gan_mesh_nccl(card: str, dev, mesh, cfgs: dict) -> None:
+    """Phase 23(a) for the GAN trainers: each on ``mesh`` (one rank,
+    ``data=-1``) against ``mesh=None``, both from ``GAN_SEED``'s state, one
+    step of each phase with the same draws, twice in the order A B B A; the
+    losses must be equal to the bit.  Prints each step's ms on both sides
+    (the first pass holds the first calls' costs)."""
+    for name in GAN_TRAINERS:
+        t0 = time.perf_counter()
+        draws = gan_draws(name, cfgs, cfgs[name].batch_size, GAN_SEED, explicit=False)
+        trainers = {"one device": _gan_trainer(name, cfgs, dev),
+                    "mesh": _gan_trainer(name, cfgs, dev, mesh=mesh)}
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        runs = {"one device": [], "mesh": []}
+        for label in ("one device", "mesh", "mesh", "one device"):
+            runs[label].append(gan_steps(name, trainers[label], draws, slice(None), dev))
+        for ours, ref in zip(runs["mesh"], runs["one device"]):
+            if [s[:2] for s in ours] != [s[:2] for s in ref]:
+                fail(f"[23] (a) {name} on the data=-1 mesh: losses {ours} differ from one "
+                     f"device's {ref}")
+        print(f"[23] (a) {name} ({_gan_widths(name, cfgs)}) on a data=-1 mesh of one "
+              f"{mesh.device} rank against mesh=None, one step of each phase twice (A B B A): "
+              "losses equal to the bit; ms mesh / one device: " + ", ".join(
+                  f"{ours[0]} {ours[2]:.1f} and {ours2[2]:.1f} / {ref[2]:.1f} and "
+                  f"{ref2[2]:.1f}"
+                  for ours, ours2, ref, ref2 in zip(*runs["mesh"], *runs["one device"]))
+              + f"; the two trainers' init {init_s:.1f} s, all {time.perf_counter() - t0:.1f} s"
+              f"  [{card}]", flush=True)
+        del trainers, runs
+
+
+def _gan_widths(name: str, cfgs: dict) -> str:
+    c = cfgs[name]
+    if name == "seqgan":
+        return (f"V={c.g.vocab_size}, T={c.g.seq_len}, batch {c.batch_size}, rollout "
+                f"{c.rollout_num}, D {c.d.feature_dim} filters")
+    if name == "leakgan":
+        return (f"V={c.cfg.vocab_size}, T={c.cfg.seq_len}, batch {c.batch_size}, rollout "
+                f"{c.rollout_num}, D {c.cfg.goal_out_size} filters")
+    return (f"H={c.cfg.hidden_dim}, T={c.cfg.song_length}, noise {c.cfg.noise_dim}, batch "
+            f"{c.batch_size}, meta {c.cfg.meta_dim}")
+
+
+def _gan_batches(name: str, cfgs: dict, shape: tuple) -> tuple[int, int | None]:
+    """``(global batch, batch_size a data rank)`` of phase 23(b)'s step on a
+    mesh ``shape``: SeqGAN's and LeakGAN's batch_size is a data rank's (the
+    shipped batch split over ``data``), C-RNN-GAN's the global batch."""
+    batch = cfgs[name].batch_size
+    if name == "crnngan" or shape[0] == 1:
+        return batch, None
+    return batch, batch // shape[0]
+
+
+def _gan_reference(name: str, cfgs: dict, shape: tuple, draws: dict, dev):
+    """One device's float64 steps of trainer ``name`` on the whole of
+    ``draws``, from the state of phase 23(b)'s ranks on a mesh ``shape``:
+    ``(steps, whole state)``.  LeakGAN's data ranks each hold ``goal_init``
+    rows of their own batch, so its one-device trainer takes them tiled over
+    the global batch (its Manager's Adam state anew)."""
+    import torch
+
+    _, local = _gan_batches(name, cfgs, shape)
+    tr = _gan_trainer(name, cfgs, dev, batch=local, dtype=torch.float64)
+    if name == "leakgan" and local is not None:
+        manager = tr.g_params["manager"]
+        tr.g_params = {**tr.g_params, "manager": {
+            **manager, "goal_init": manager["goal_init"].repeat(shape[0], 1)}}
+        tr.m_opt = tr.m_tx.init(tr.g_params["manager"])
+    return gan_steps(name, tr, draws, slice(None), dev), _gan_state(name, tr)
+
+
+def _gan_rank(config: str, device: str) -> dict | None:
+    """Phase 23(b), one gloo rank: for each mesh of ``GAN_GLOO_SHAPES`` and
+    each GAN trainer, one step of each phase in float64 on this rank's rows
+    of :func:`gan_draws` (explicit draws on ``data=2``, the generators' seeds
+    on ``model=2``, one data rank); rank 0 then takes the same steps on its
+    device alone (:func:`_gan_reference`) and returns, for each ``(shape,
+    trainer)``, the mesh's steps, the largest relative gap of their values
+    from one device's, that of any leaf of the state after them (over its
+    largest magnitude; LeakGAN's ``goal_init`` left out on ``data=2``, whose
+    rows the data ranks share), the leaves compared and the seconds of the
+    mesh's trainer init, steps and gather."""
+    import torch
+
+    from music_tpu_torch.parallel.mesh import MeshSpec, block, make_mesh
+
+    cfgs = gan_mesh_configs(config)
+    out = {}
+    for shape in GAN_GLOO_SHAPES:
+        mesh = make_mesh(MeshSpec(*shape), device=device)
+        for name in GAN_TRAINERS:
+            t0 = time.perf_counter()
+            batch, local = _gan_batches(name, cfgs, shape)
+            draws = gan_draws(name, cfgs, batch, GAN_SEED + 1, explicit=shape[0] > 1)
+            tr = _gan_trainer(name, cfgs, device, mesh=mesh, batch=local, dtype=torch.float64)
+            t1 = time.perf_counter()
+            steps = gan_steps(name, tr, draws, block(batch, shape[0], mesh.index("data")),
+                              mesh.device)
+            t2 = time.perf_counter()
+            state = _gan_state(name, tr)
+            seconds = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+            del tr
+            if mesh.rank != 0:
+                continue
+            ref_steps, ref_state = _gan_reference(name, cfgs, shape, draws, mesh.device)
+            values_err = max(abs(a - b) / max(abs(b), 1e-30)
+                             for (_, ours, _), (_, theirs, _) in zip(steps, ref_steps)
+                             for a, b in zip(ours, theirs))
+            keys = [k for k in ref_state if "goal_init" not in k or shape[0] == 1]
+            state_err = _leaf_error({k: state[k] for k in keys}, {k: ref_state[k] for k in keys})
+            if len(steps) != len(ref_steps):
+                values_err = float("inf")
+            out[(shape, name)] = (steps, values_err, state_err, (len(keys), len(ref_state)),
+                                  seconds)
+    return out if mesh.rank == 0 else None
+
+
+def _mesh_rank(wavenet_args: tuple, gan_args: tuple):
+    """Phase 23(b)'s work on one gloo rank: WaveNet's gradients
+    (:func:`_mesh_rank_grads`), then the GAN trainers' steps
+    (:func:`_gan_rank`)."""
+    return _mesh_rank_grads(*wavenet_args), _gan_rank(*gan_args)
+
+
 def _mesh_rank_grads(cfg_json: dict, params: dict, tokens, shapes: tuple, window: int,
                      device: str):
     """Phase 23(b), one gloo rank: for each mesh shape of the two ranks, the
@@ -1078,9 +1429,14 @@ def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
     loss and every gradient leaf in float64 against one device's, and a
     float32 step's ms, on windows of ``gloo_window`` (a tenth of (a)'s: the
     ranks' collectives go through the host, 1.2 GB a ``model=2`` step at
-    40,000).  At the shipped width by default; ``config="tiny"`` and small
-    shapes rehearse it on the CPU.  Returns the main path's launches of
-    each kernel and the phase's seconds."""
+    40,000).  The GAN trainers (:func:`gan_mesh_configs`): in (a) each on
+    the ``data=-1`` mesh against ``mesh=None``, one step of each phase,
+    losses equal to the bit (:func:`gan_mesh_nccl`); in (b) one step of
+    each phase on ``data=2`` and ``model=2`` in float64 against one
+    device's (:func:`_gan_rank`), the losses and every leaf of the state
+    within ``MESH_TOL``.  At the shipped width by default;
+    ``config="tiny"`` and small shapes rehearse it on the CPU.  Returns the
+    main path's launches of each kernel and the phase's seconds."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1099,6 +1455,7 @@ def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
 
     t_phase = time.perf_counter()
     cfg = poly.config(config)
+    gan_cfgs = gan_mesh_configs("tiny" if config == "tiny" else "shipped")
     cfg_json = {**dataclasses.asdict(cfg), "dilations": list(cfg.dilations)}
     backend = "nccl" if dev.type == "cuda" else "gloo"
     multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, backend=backend,
@@ -1202,6 +1559,8 @@ def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
         print(f"[23] DecodeSession(mesh) call, {streams} bf16 categorical streams x "
               f"{session_steps} steps: equal to the single-device session's, "
               f"{dec.LAUNCHES} launch of B1", flush=True)
+        del ref_sess, sess
+        gan_mesh_nccl(card, dev, mesh, gan_cfgs)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1223,10 +1582,11 @@ def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
         _, ref32 = grads_of(torch.float32, torch.from_numpy(gloo_tokens).to(dev))
         shapes = ((2, 1, 1), (1, 1, 2))
         t0 = time.perf_counter()
-        results = launch.run(_mesh_rank_grads, 2, (cfg_json, {k: v.cpu() for k, v in
-                                                              params0.items()},
-                                                  gloo_tokens, shapes, gloo_window, dev.type),
-                             backend="gloo", device=dev.type)[0]
+        results, gan_results = launch.run(
+            _mesh_rank, 2, ((cfg_json, {k: v.cpu() for k, v in params0.items()}, gloo_tokens,
+                             shapes, gloo_window, dev.type),
+                            ("tiny" if config == "tiny" else "shipped", dev.type)),
+            backend="gloo", device=dev.type)[0]
         spawn_s = time.perf_counter() - t0
         for shape, (loss, grads, _, grads32, step_ms) in zip(shapes, results):
             rel = abs(loss - ref_loss) / abs(ref_loss)
@@ -1239,7 +1599,22 @@ def mesh_phase(card: str, dev, config: str = "shipped", window: int = 40_000,
             if rel > MESH_TOL or err > MESH_TOL:
                 fail(f"[23] the gloo mesh {shape} differs from one device: loss {rel:.3g}, "
                      f"gradients {err:.3g}")
-        print(f"[23] (b) took {spawn_s:.1f} s with the spawn of the two ranks", flush=True)
+        for (shape, name), (steps, values_err, state_err, (n_cmp, n_all), (init_s, steps_s,
+                                                                        state_s)) in (
+                gan_results.items()):
+            print(f"[23] (b) {name} on two gloo ranks, mesh {shape}, global batch "
+                  f"{_gan_batches(name, gan_cfgs, shape)[0]}, float64, steps "
+                  f"{', '.join(s[0] for s in steps)}: losses within {values_err:.2e} relative "
+                  f"of one device's, every leaf of the state after them within "
+                  f"{state_err:.2e} of its largest magnitude ({n_cmp} of {n_all} leaves); the "
+                  "ranks' ms " + ", ".join(f"{s[0]} {s[2]:.1f}" for s in steps)
+                  + f"; rank 0's init, steps and gather {init_s:.1f}, {steps_s:.1f}, "
+                  f"{state_s:.1f} s  [{card}]", flush=True)
+            if values_err > MESH_TOL or state_err > MESH_TOL:
+                fail(f"[23] the gloo GAN mesh {shape} of {name} differs from one device: "
+                     f"losses {values_err:.3g}, state {state_err:.3g}")
+        print(f"[23] (b) took {spawn_s:.1f} s with the spawn of the two ranks and rank 0's "
+              "one-device GAN references", flush=True)
     seconds = time.perf_counter() - t_phase
     print(f"[23] the mesh phase took {seconds:.1f} s", flush=True)
     return {"launched": launched, "seconds": seconds}

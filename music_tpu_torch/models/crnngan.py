@@ -28,6 +28,12 @@ uniform in [0, 1), ``[length, batch,
 noise_dim]`` as ``jax.random.uniform`` draws it: from ``noise`` when the
 caller passes it (a test feeds JAX's own draws) or from ``generator``.
 Not ported: the carries' zero-valued jitter, a shard_map workaround.
+
+On a mesh (JAX's ``d_forward`` and ``axis_name``): the losses take
+``d_forward``, the hidden-split D of a ``model`` mesh
+(:func:`music_tpu_torch.parallel.gan_tp.crnngan_forward_tp`), and
+:func:`g_feature_matching_loss` the process ``group`` over which it
+averages the feature means before the MSE.
 """
 
 from __future__ import annotations
@@ -147,13 +153,15 @@ def generate(params: dict, cfg: CRnnGanConfig, batch: int, length: int | None = 
     w1 = params["fc1"]["w"]
     fixed = [noise] + ([meta[None].expand(length, batch, meta.shape[-1])]
                        if meta is not None else [])
-    pre = torch.cat(fixed, dim=-1) @ torch.cat([w1[:nd], w1[nd + F:]]) + params["fc1"]["b"]
+    pre = (torch.cat(fixed, dim=-1).to(w1.dtype) @ torch.cat([w1[:nd], w1[nd + F:]])
+           + params["fc1"]["b"])
     w_prev = w1[nd:nd + F]
     l1, l2 = params["lstm1"], params["lstm2"]
     b1, b2 = l1["bi"] + l1["bh"], l2["bi"] + l2["bh"]
-    h1, c1 = lstm_zero_state(batch, H, device)
-    h2, c2 = lstm_zero_state(batch, H, device)
-    prev = torch.zeros((batch, F), device=device)
+    dtype = w1.dtype
+    h1, c1 = lstm_zero_state(batch, H, device, dtype)
+    h2, c2 = lstm_zero_state(batch, H, device, dtype)
+    prev = torch.zeros((batch, F), device=device, dtype=dtype)
     outs = []
     for t in range(length):
         x = torch.relu(torch.addmm(pre[t], prev, w_prev))
@@ -199,7 +207,7 @@ def generator_teacher_forced(params: dict, real: torch.Tensor, cfg: CRnnGanConfi
                       real[:, :-1]], dim=1).transpose(0, 1)  # [T, B, F]
     parts = [noise, prev] + ([meta[None].expand(T, B, meta.shape[-1])] if meta is not None
                              else [])
-    x = torch.relu(linear(params["fc1"], torch.cat(parts, dim=-1)))
+    x = torch.relu(linear(params["fc1"], torch.cat(parts, dim=-1).to(params["fc1"]["w"].dtype)))
     h1 = _lstm_stack([params["lstm1"]], x[None])[0]
     h2 = _lstm_stack([params["lstm2"]], h1[None])[0]
     return linear(params["fc2"], h2).transpose(0, 1)
@@ -224,16 +232,17 @@ def discriminator_forward(params: dict, events: torch.Tensor, cfg: CRnnGanConfig
 
 
 def discriminator_pair(params: dict, real: torch.Tensor, fake: torch.Tensor,
-                       cfg: CRnnGanConfig, meta: torch.Tensor | None = None):
+                       cfg: CRnnGanConfig, meta: torch.Tensor | None = None, d_forward=None):
     """D on real and on fake events, ``((p_real, f_real), (p_fake,
     f_fake))``: one forward of both batches when their shapes agree (D
-    reads each row alone, so the values are those of two forwards)."""
+    reads each row alone, so the values are those of two forwards).
+    ``d_forward``: D's forward (default :func:`discriminator_forward`)."""
+    fwd = d_forward or discriminator_forward
     if real.shape[1:] != fake.shape[1:]:
-        return (discriminator_forward(params, real, cfg, meta=meta),
-                discriminator_forward(params, fake, cfg, meta=meta))
+        return fwd(params, real, cfg, meta=meta), fwd(params, fake, cfg, meta=meta)
     B = real.shape[0]
-    p, f = discriminator_forward(params, torch.cat([real, fake]), cfg,
-                                 meta=None if meta is None else torch.cat([meta, meta]))
+    p, f = fwd(params, torch.cat([real, fake]), cfg,
+               meta=None if meta is None else torch.cat([meta, meta]))
     return (p[:B], f[:B]), (p[B:], f[B:])
 
 
@@ -243,30 +252,38 @@ def d_loss_from(p_real: torch.Tensor, p_fake: torch.Tensor, eps: float = 1e-7) -
 
 
 def d_loss(d_params: dict, real: torch.Tensor, fake: torch.Tensor, cfg: CRnnGanConfig,
-           eps: float = 1e-7, meta: torch.Tensor | None = None) -> torch.Tensor:
+           eps: float = 1e-7, meta: torch.Tensor | None = None, d_forward=None) -> torch.Tensor:
     """Per-step BCE: real -> 1, fake -> 0."""
-    (p_real, _), (p_fake, _) = discriminator_pair(d_params, real, fake, cfg, meta)
+    (p_real, _), (p_fake, _) = discriminator_pair(d_params, real, fake, cfg, meta, d_forward)
     return d_loss_from(p_real, p_fake, eps)
 
 
 def g_adv_loss(g_params: dict, d_params: dict, batch: int, cfg: CRnnGanConfig,
                meta: torch.Tensor | None = None, *, generator: torch.Generator | None = None,
-               noise: torch.Tensor | None = None) -> torch.Tensor:
+               noise: torch.Tensor | None = None, d_forward=None) -> torch.Tensor:
     """Adversarial G loss: -mean log D(fake)."""
     fake = generate(g_params, cfg, batch, meta=meta, generator=generator, noise=noise)
-    p_fake, _ = discriminator_forward(d_params, fake, cfg, meta=meta)
+    p_fake, _ = (d_forward or discriminator_forward)(d_params, fake, cfg, meta=meta)
     return -torch.log(p_fake + 1e-7).mean()
 
 
 def g_feature_matching_loss(g_params: dict, d_params: dict, real: torch.Tensor,
                             cfg: CRnnGanConfig, meta: torch.Tensor | None = None, *,
                             generator: torch.Generator | None = None,
-                            noise: torch.Tensor | None = None) -> torch.Tensor:
+                            noise: torch.Tensor | None = None, d_forward=None,
+                            group=None) -> torch.Tensor:
     """The paper's feature matching: MSE between D's mean features (over
-    batch and time) on real and on fake events."""
+    batch and time) on real and on fake events.  ``group``: the process
+    group of a mesh's ``(data, seq)`` ranks; the feature means are averaged
+    over it before the MSE, which is not linear in them, so that the loss
+    is the global batch's (every rank's the same, its backward this rank's
+    share of the gradient)."""
+    from music_tpu_torch.parallel.collectives import group_mean
+
     fake = generate(g_params, cfg, real.shape[0], meta=meta, generator=generator, noise=noise)
-    (_, f_real), (_, f_fake) = discriminator_pair(d_params, real, fake, cfg, meta)
-    return ((f_real.mean(dim=(0, 1)) - f_fake.mean(dim=(0, 1))) ** 2).mean()
+    (_, f_real), (_, f_fake) = discriminator_pair(d_params, real, fake, cfg, meta, d_forward)
+    fr, ff = group_mean(torch.stack([f_real.mean(dim=(0, 1)), f_fake.mean(dim=(0, 1))]), group)
+    return ((fr - ff) ** 2).mean()
 
 
 def g_pretrain_loss(g_params: dict, real: torch.Tensor, cfg: CRnnGanConfig,

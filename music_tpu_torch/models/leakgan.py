@@ -33,8 +33,14 @@ minimised, #8 the reward column ``given_num / step_size``, #9 one uniform
 rollout (teacher-forced to the restore point, sampling after); and its
 non-bug notes: the 'pre' engine's Worker free-runs on its own samples
 while D reads real prefixes, and the rank rescale is divided by
-``rollout_num``.  Not here: the tensor-parallel ``d_forward`` and the
-cross-shard ``axis_name`` gather (ROADMAP.md, A11).
+``rollout_num``.
+
+On a mesh (JAX's ``d_forward`` and ``axis_name``): every engine takes
+``d_forward``, the split discriminator of a ``model`` mesh
+(:func:`music_tpu_torch.parallel.gan_tp.leakgan_forward_tp`), and
+:func:`get_rewards` / :func:`rescale_rewards` take the ``data`` process
+``group``, over which the scores are gathered so that each rank ranks its
+sequences within the global batch.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from music_tpu_torch.models.seqgan import cnn_features, dropout, highway
 from music_tpu_torch.ops.rnn import (
@@ -258,12 +265,13 @@ def generator_step(g_params: dict, x_t: torch.Tensor, f_t: torch.Tensor, state: 
 def _init_gen_state(g_params: dict, batch: int, cfg: LeakGanConfig,
                     goal_init_rows: torch.Tensor | None = None) -> dict:
     device = g_params["worker"]["embed"].device
-    h_w, c_w = lstm_zero_state(batch, cfg.worker_hidden, device)
-    h_m, c_m = lstm_zero_state(batch, cfg.manager_hidden, device)
+    dtype = g_params["worker"]["embed"].dtype
+    h_w, c_w = lstm_zero_state(batch, cfg.worker_hidden, device, dtype)
+    h_m, c_m = lstm_zero_state(batch, cfg.manager_hidden, device, dtype)
     if goal_init_rows is None:
         goal_init_rows = g_params["manager"]["goal_init"][:batch]
     return {"h_m": h_m, "c_m": c_m, "h_w": h_w, "c_w": c_w,
-            "last_goal": torch.zeros((batch, cfg.goal_out_size), device=device),
+            "last_goal": torch.zeros((batch, cfg.goal_out_size), device=device, dtype=dtype),
             "real_goal": goal_init_rows}
 
 
@@ -283,7 +291,7 @@ def _engine(g_params: dict, d_params: dict, cfg: LeakGanConfig, batch: int, *,
             goal_init_rows: torch.Tensor | None = None,
             generator: torch.Generator | None = None, noise: torch.Tensor | None = None,
             dropout_generator: torch.Generator | None = None,
-            dropout_mask: torch.Tensor | None = None, collect: bool = True):
+            dropout_mask: torch.Tensor | None = None, collect: bool = True, d_forward=None):
     """The unified recurrent engine (JAX's ``_engine_scan``).
 
     Per step t: D's feature on the current padded prefix, one generator
@@ -294,11 +302,13 @@ def _engine(g_params: dict, d_params: dict, cfg: LeakGanConfig, batch: int, *,
       rollout streams of every restore point run together).
     - ``real_prefix``: 'pre' mode, D reads real tokens before t and pad
       after, whatever the Worker samples (it free-runs on its own samples).
+    - ``d_forward``: D's forward (default :func:`discriminator_forward`).
 
     Returns ``(tokens [batch, seq_len], outs)``, ``outs`` the per-step
     ``feature``, ``probs``, ``token`` and ``real_goal`` stacked on a leading
     step axis, or None without ``collect``."""
     device = g_params["worker"]["embed"].device
+    d_forward = d_forward or discriminator_forward
     state = _init_gen_state(g_params, batch, cfg, goal_init_rows)
     buf = torch.full((batch, cfg.seq_len), cfg.pad_token, dtype=torch.long, device=device)
     pos = torch.arange(cfg.seq_len, device=device)
@@ -311,7 +321,7 @@ def _engine(g_params: dict, d_params: dict, cfg: LeakGanConfig, batch: int, *,
     for t in range(n_steps):
         prefix = buf if real_prefix is None else torch.where(pos < t, real_prefix, cfg.pad_token)
         with torch.no_grad():
-            f_t = discriminator_forward(
+            f_t = d_forward(
                 d_params, prefix, cfg, dropout_generator=dropout_generator,
                 dropout_mask=None if dropout_mask is None else dropout_mask[t])["feature"]
         sampled, probs, _, state = generator_step(
@@ -348,23 +358,26 @@ def _pre_adv_post(outs: dict, cfg: LeakGanConfig) -> dict:
 
 
 def pre_engine(g_params, d_params, real_data, *, cfg: LeakGanConfig,
-               generator=None, noise=None, dropout_generator=None, dropout_mask=None):
+               generator=None, noise=None, dropout_generator=None, dropout_mask=None,
+               d_forward=None):
     """'pre': D reads real-data prefixes; returns real_goal [B, n_goals, G],
     prediction [B, T, V], delta_feature [B, n_goals, G]."""
     _, outs = _engine(g_params, d_params, cfg, real_data.shape[0], n_steps=cfg.seq_len + 1,
                       real_prefix=real_data, generator=generator, noise=noise,
-                      dropout_generator=dropout_generator, dropout_mask=dropout_mask)
+                      dropout_generator=dropout_generator, dropout_mask=dropout_mask,
+                      d_forward=d_forward)
     return _pre_adv_post(outs, cfg)
 
 
 def adv_engine(g_params, d_params, batch: int, *, cfg: LeakGanConfig,
                temperature: float = 1.0, generator=None, noise=None,
-               dropout_generator=None, dropout_mask=None):
+               dropout_generator=None, dropout_mask=None, d_forward=None):
     """'adv': free-running; also returns all_goal [B, T, G],
     delta_feature_for_worker [B, T, G] and gen_token [B, T]."""
     tokens, outs = _engine(g_params, d_params, cfg, batch, n_steps=cfg.seq_len + 1,
                            temperature=temperature, generator=generator, noise=noise,
-                           dropout_generator=dropout_generator, dropout_mask=dropout_mask)
+                           dropout_generator=dropout_generator, dropout_mask=dropout_mask,
+                           d_forward=d_forward)
     rets = _pre_adv_post(outs, cfg)
     feats, k = outs["feature"], cfg.step_size
     # Worker deltas at t = 1..T: f_t - f_{t - (t % k or k)}
@@ -378,37 +391,52 @@ def adv_engine(g_params, d_params, batch: int, *, cfg: LeakGanConfig,
 @torch.no_grad()
 def gen_samples(g_params, d_params, batch: int, *, cfg: LeakGanConfig,
                 temperature: float = 1.0, generator=None, noise=None,
-                goal_init_rows: torch.Tensor | None = None) -> torch.Tensor:
+                goal_init_rows: torch.Tensor | None = None, d_forward=None) -> torch.Tensor:
     """'gen': [batch, seq_len] sampled token ids.  ``goal_init_rows``
     (default ``goal_init[:batch]``) lets one pass sample several batches:
     row ``i`` from ``goal_init[i % batch_size]``, as batch after batch
     would."""
     tokens, _ = _engine(g_params, d_params, cfg, batch, n_steps=cfg.seq_len,
                         temperature=temperature, goal_init_rows=goal_init_rows,
-                        generator=generator, noise=noise, collect=False)
+                        generator=generator, noise=noise, collect=False, d_forward=d_forward)
     return tokens
 
 
-def rescale_rewards(sums: torch.Tensor, *, delta: float = 16.0) -> torch.Tensor:
+def rescale_rewards(sums: torch.Tensor, *, delta: float = 16.0, group=None) -> torch.Tensor:
     """Rank-based rescale across the batch (axis 1):
     ``sigmoid(delta * (0.5 - rank / B))``, rank 1 the highest sum.  Stable
-    sorts, as ``jnp.argsort``: equal sums rank by index."""
-    B = sums.shape[1]
-    order = torch.argsort(sums, dim=1, stable=True)
+    sorts, as ``jnp.argsort``: equal sums rank by index.
+
+    ``group``: the ``data`` process group of a mesh.  The ranks' columns are
+    gathered so that the ranks are taken over the global batch, as one
+    device takes them, and this rank's columns of the result are returned;
+    within each rank alone they would flatten the rewards (8 sequences
+    ranked instead of 64 at ``data=8``)."""
+    from music_tpu_torch.parallel.collectives import gather_from
+
+    full = gather_from(sums, group, 1)
+    B = full.shape[1]
+    order = torch.argsort(full, dim=1, stable=True)
     rank = B - torch.argsort(order, dim=1, stable=True)
-    return torch.sigmoid(delta * (0.5 - rank.to(torch.float32) / B))
+    rescaled = torch.sigmoid(delta * (0.5 - rank.to(torch.float32) / B))
+    if group is None:
+        return rescaled
+    b = sums.shape[1]
+    return rescaled[:, dist.get_rank(group) * b:(dist.get_rank(group) + 1) * b]
 
 
 @torch.no_grad()
 def get_rewards(g_params, d_params, input_x: torch.Tensor, *, cfg: LeakGanConfig,
                 rollout_num: int = 4, temperature: float = 1.0, delta: float = 16.0,
-                generator=None, noise=None) -> torch.Tensor:
+                generator=None, noise=None, d_forward=None, group=None) -> torch.Tensor:
     """Rollout rewards [B, n_goals]: for each restore point 0, k, 2k, ...,
     ``rollout_num`` completions of each sequence, P(real) summed over the
     rollouts, rank-rescaled across the batch, divided by ``rollout_num``.
     All R x n_goals x B streams run in one engine pass (1,024 at the
     shipped config), stream (r, j, b) from batch row b's ``goal_init``.
-    ``noise``: ``[seq_len, R*n_goals*B, V]``."""
+    ``noise``: ``[seq_len, R*n_goals*B, V]``.  ``d_forward``: D's forward;
+    ``group``: the ``data`` group the rescale ranks over
+    (:func:`rescale_rewards`)."""
     input_x = input_x.long()
     B, T = input_x.shape
     R, n = rollout_num, cfg.n_goals
@@ -421,10 +449,11 @@ def get_rewards(g_params, d_params, input_x: torch.Tensor, *, cfg: LeakGanConfig
     completions, _ = _engine(g_params, d_params, cfg, N, n_steps=cfg.seq_len,
                              teacher_tokens=teacher, teacher_until=given.reshape(N),
                              temperature=temperature, goal_init_rows=gi,
-                             generator=generator, noise=noise, collect=False)
-    pred = discriminator_forward(d_params, completions, cfg)["pred"][:, 1]
+                             generator=generator, noise=noise, collect=False,
+                             d_forward=d_forward)
+    pred = (d_forward or discriminator_forward)(d_params, completions, cfg)["pred"][:, 1]
     sums = pred.reshape(R, n, B).sum(dim=0)  # [n, B]
-    return rescale_rewards(sums, delta=delta).T / rollout_num
+    return rescale_rewards(sums, delta=delta, group=group).T / rollout_num
 
 
 # ---------------------------------------------------------------------------

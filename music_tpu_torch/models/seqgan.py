@@ -24,7 +24,10 @@ Hopper, which would break float32 parity.
 Kept from the JAX package (docs/DIVERGENCES.md): #4 a trained highway,
 #5 true categorical sampling, #6 the descending policy-gradient sign,
 #17 the N(0, 1) oracle init (``init="normal"``, chosen by the trainer).
-Not here: the model-parallel scorer ``pos_prob_fn`` (ROADMAP.md, A11).
+The model-parallel discriminator is
+:func:`music_tpu_torch.parallel.gan_tp.discriminator_forward_tp`, which
+the trainer on a ``model`` mesh passes to :func:`rollout_rewards` as
+``pos_prob_fn``.
 """
 
 from __future__ import annotations
@@ -111,7 +114,7 @@ def generate(params: dict, cfg: GeneratorConfig, batch: int, *,
     ``noise``: ``[seq_len, batch, V]`` Gumbel draws, JAX's
     ``gumbel(k, (batch, V))`` for ``k`` in ``split(key, seq_len)``."""
     device = params["embed"].device
-    h, c = lstm_zero_state(batch, cfg.hidden_dim, device)
+    h, c = lstm_zero_state(batch, cfg.hidden_dim, device, params["embed"].dtype)
     tok = torch.full((batch,), cfg.start_token, dtype=torch.long, device=device)
     toks = []
     for t in range(cfg.seq_len):
@@ -166,16 +169,21 @@ def init_discriminator(generator: torch.Generator, cfg: DiscriminatorConfig,
 
 def cnn_features(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Conv -> relu -> max over time, each branch one GEMM over its window:
-    the feature vector [B, sum(num_filters)].
+    the feature vector [B, sum(num_filters)] (:func:`conv_features` of the
+    tokens' embeddings)."""
+    return conv_features(params["embed"][tokens.long()], params["convs"])
+
+
+def conv_features(x: torch.Tensor, convs: list[dict]) -> torch.Tensor:
+    """The conv branches on embeddings ``x [B, T, E]``: ``[B, sum(nf)]``.
 
     The windows are one strided view of the embeddings (``unfold``), laid
     out ``[B, T-fs+1, fs*E]`` tap-major as ``w.reshape(fs*E, nf)``: one copy
     forward and one ``unfold_backward`` backward a branch, where ``fs``
     shifted slices would cost ~3·fs small kernels in the backward pass."""
-    x = params["embed"][tokens.long()]  # [B, T, E]
     B, T, E = x.shape
     feats = []
-    for conv in params["convs"]:
+    for conv in convs:
         fs, _, nf = conv["w"].shape
         if fs > T:
             raise ValueError(f"sequence length {T} too short for filter size {fs}")
@@ -224,7 +232,8 @@ def discriminator_forward(params: dict, tokens: torch.Tensor, cfg: Discriminator
 
 
 def discriminator_pos_prob(params: dict, tokens: torch.Tensor, cfg: DiscriminatorConfig):
-    """P(real) per sequence, class 1 (the reward signal)."""
+    """P(real) per sequence, class 1 (the reward signal); the default
+    ``pos_prob_fn`` of :func:`rollout_rewards`."""
     score = discriminator_forward(params, tokens, cfg)["score"]
     return torch.softmax(score, dim=-1)[:, 1]
 
@@ -248,7 +257,7 @@ def discriminator_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 def rollout_rewards(g_params: dict, d_params: dict, samples: torch.Tensor, *,
                     g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                     rollout_num: int = 16, generator: torch.Generator | None = None,
-                    noise: torch.Tensor | None = None) -> torch.Tensor:
+                    noise: torch.Tensor | None = None, pos_prob_fn=None) -> torch.Tensor:
     """Monte-Carlo rewards [B, T]: for prefix length t in [1, T), the mean
     P(real) of ``rollout_num`` completions; the last column is D on the
     sample itself.
@@ -259,7 +268,9 @@ def rollout_rewards(g_params: dict, d_params: dict, samples: torch.Tensor, *,
     inside its prefix and its own Gumbel-max draw after, one loop over
     positions; then one D forward scores every completion.  ``noise``:
     ``[T-1, R*(T-1)*B, V]``, JAX's ``gumbel(k, (N, V))`` for ``k`` in
-    ``split(key, T-1)``."""
+    ``split(key, T-1)``.  ``pos_prob_fn(d_params, tokens)`` scores them
+    (default :func:`discriminator_pos_prob`; the tensor-parallel trainer
+    passes the split forward's)."""
     samples = samples.long()
     B, T = samples.shape
     R, n_prefix = rollout_num, T - 1
@@ -267,7 +278,7 @@ def rollout_rewards(g_params: dict, d_params: dict, samples: torch.Tensor, *,
     lstm, embed = g_params["lstm"], g_params["embed"]
     device = embed.device
     start = torch.full((B,), g_cfg.start_token, dtype=torch.long, device=device)
-    s0 = lstm_cell(lstm, embed[start], lstm_zero_state(B, g_cfg.hidden_dim, device))
+    s0 = lstm_cell(lstm, embed[start], lstm_zero_state(B, g_cfg.hidden_dim, device, embed.dtype))
     h, c = lstm_cell(lstm, embed[samples[:, 0]], s0)
     h = h.expand(R * n_prefix, B, -1).reshape(N, -1)
     c = c.expand(R * n_prefix, B, -1).reshape(N, -1)
@@ -284,9 +295,10 @@ def rollout_rewards(g_params: dict, d_params: dict, samples: torch.Tensor, *,
         h, c = lstm_cell(lstm, embed[tok], (h, c))
         toks.append(tok)
     completions = torch.cat([sample_rep[:, :1], torch.stack(toks, dim=1)], dim=1)  # [N, T]
-    probs = discriminator_pos_prob(d_params, completions, d_cfg)
+    score = pos_prob_fn or (lambda p, t: discriminator_pos_prob(p, t, d_cfg))
+    probs = score(d_params, completions)
     rewards_mc = probs.reshape(R, n_prefix, B).mean(dim=0)  # [T-1, B]
-    final = discriminator_pos_prob(d_params, samples, d_cfg)
+    final = score(d_params, samples)
     return torch.cat([rewards_mc.T, final[:, None]], dim=1)
 
 

@@ -15,6 +15,13 @@ backward, which is wrong where every rank goes on with the same sum.
   after ``post1``/``conn1``).
 - :func:`all_gather`: concatenation of the ranks' blocks; backward hands
   each rank its block of the gradient summed over the group.
+- :func:`gather_from`: the same concatenation for a tensor every rank then
+  uses whole and alike (the tensor-parallel GAN discriminators' features
+  and hidden states); backward hands each rank its block of the gradient,
+  which is whole on every rank already.
+- :func:`group_mean`: the mean over a group of a tensor that the ranks go
+  on to use alike; backward gives this rank its share, the gradient over
+  the group's size (for :func:`sum_grads` to sum).
 - :func:`pmean`: a loss's mean over mesh axes; backward gives this rank's
   share of the gradient, which :func:`sum_grads` sums over ``(data, seq)``.
 
@@ -79,6 +86,20 @@ class _AllGather(torch.autograd.Function):
         return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
 class _Pmean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, share):
@@ -105,6 +126,36 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     order (JAX's ``all_gather(tiled=True)``); backward returns this rank's
     block of the gradient summed over ``group``."""
     return x if group is None else _AllGather.apply(x, group, dim)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``group`` concatenated along ``dim`` in rank
+    order, for a result every rank uses alike (or enters through
+    :func:`copy_to` where it uses its own part): backward returns this
+    rank's block of the gradient, with no collective (Megatron's gather of
+    a tensor-parallel region)."""
+    return x if group is None else _GatherFrom.apply(x, group, dim)
+
+
+def group_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (JAX's ``pmean`` of a value inside a
+    loss, such as feature matching's feature means).  Every rank goes on
+    with the same mean, so backward gives this rank's share, the gradient
+    over the group's size: :func:`sum_grads` over the group then gives the
+    whole gradient."""
+    if group is None:
+        return x
+    n = dist.get_world_size(group)
+    return _Pmean.apply(x, group, n, n)
+
+
+@torch.no_grad()
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group``, outside autograd (statistics that
+    every rank must read alike, such as a trainer's gates)."""
+    if group is None:
+        return x
+    return _all_reduce(x, group) / dist.get_world_size(group)
 
 
 def pmean(x: torch.Tensor, mesh: Mesh, axes: tuple[str, ...] = LOSS_AXES) -> torch.Tensor:
@@ -150,17 +201,34 @@ class ModelSplit:
         return reduce_from(x, self.group)
 
 
-def sharded_global_norm(mesh: Mesh, specs: dict) -> Callable[[dict], torch.Tensor]:
-    """The global norm of a dict of updates keyed by parameter name, some
-    split by ``specs`` (name -> spec): each split leaf's square summed over
-    its axes' group, each replicated leaf counted once (what optax's
-    global norm of the whole arrays gives); for
+def _leaf_specs(tree: Any, specs: Any):
+    """``(leaf, spec)`` pairs of a tree of updates and the tree of specs
+    beside it (a spec is a tuple; a key missing from a dict of specs, or no
+    spec at all, means replicated)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_specs(tree[k], specs.get(k, ()) if isinstance(specs, dict) else ())
+    elif isinstance(tree, list):
+        for i, t in enumerate(tree):
+            yield from _leaf_specs(t, specs[i] if isinstance(specs, list) else ())
+    else:
+        yield tree, specs if isinstance(specs, tuple) else ()
+
+
+def sharded_global_norm(mesh: Mesh, specs: Any) -> Callable[[Any], torch.Tensor]:
+    """The global norm of a tree of updates, some leaves split by ``specs``
+    (the same tree of partition specs: a dict of parameter name -> spec for
+    WaveNet, :func:`music_tpu_torch.parallel.gan_tp.discriminator_specs` for
+    a GAN discriminator): each split leaf's square summed over its axes'
+    group, each replicated leaf counted once (what optax's global norm of
+    the whole arrays gives); for
     :func:`music_tpu_torch.core.optim.from_config`'s ``global_norm``."""
-    def norm(updates: dict) -> torch.Tensor:
+    def norm(updates: Any) -> torch.Tensor:
         sq: dict[tuple, torch.Tensor] = {}
-        for name, g in updates.items():
-            axes = tuple(a for a in specs.get(name, ()) if a is not None)
-            sq[axes] = sq.get(axes, 0) + torch.linalg.vector_norm(g.float()) ** 2
+        for g, spec in _leaf_specs(updates, specs):
+            axes = tuple(a for a in spec if a is not None)
+            g = g.to(torch.promote_types(g.dtype, torch.float32))
+            sq[axes] = sq.get(axes, 0) + torch.linalg.vector_norm(g) ** 2
         total = sq.pop((), 0)
         for axes, s in sq.items():
             group = mesh.group(axes)

@@ -5,10 +5,17 @@ group through a TCP store on a free localhost port
 (:func:`~music_tpu_torch.parallel.multihost.initialize`), calls
 ``fn(*args)`` on each and returns the ranks' results in rank order.  The
 CPU tests run their meshes through it with gloo; ``chip_smoke.py`` runs two
-gloo ranks on one card with it.  ``fn`` must be importable by name (a
-module-level function), and its arguments and result picklable; a result
-travels as plain pickle bytes, tensors by value (the queue's own pickler
-would hand the parent a shared-memory handle of a process that exits).
+gloo ranks on one card with it.  On the CPU each rank runs one intra-op
+thread, as ``torchrun`` sets its workers: N ranks of the host's thread
+count each would oversubscribe its cores many times over.
+
+``fn`` must be importable by name (a module-level function), and its
+arguments and result picklable; both travel
+as plain pickle bytes through queues, tensors by value (the queue's own
+pickler would hand the parent a shared-memory handle of a process that
+exits).  Arguments sent with the process object instead would start the
+ranks one after another: the parent's write of a process object larger
+than a pipe's buffer waits until that child has imported the main module.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import socket
 import traceback
 from typing import Any, Callable, Sequence
 
+import torch
 import torch.distributed as dist
 
 from music_tpu_torch.parallel import multihost
@@ -32,8 +40,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, args, rank, world_size, port, backend, device, results):
+def _rank_main(payload, rank, world_size, port, backend, device, results):
     try:
+        fn, args = pickle.loads(payload.get())
+        if device == "cpu" and world_size > 1:
+            torch.set_num_threads(1)  # as torchrun: the ranks share the host's cores
         multihost.initialize(f"127.0.0.1:{port}", world_size, rank, backend=backend,
                              device=device)
         results.put((rank, True, pickle.dumps(fn(*args))))
@@ -51,10 +62,13 @@ def run(fn: Callable, world_size: int, args: Sequence[Any] = (), *, backend: str
     with the failing ranks' tracebacks if any rank raises or the run
     outlasts ``timeout_s``; no process outlives the call."""
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, payload = ctx.Queue(), ctx.Queue()
+    data = pickle.dumps((fn, tuple(args)))
+    for _ in range(world_size):
+        payload.put(data)
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, tuple(args), r, world_size, port, backend, device, results))
+                         args=(payload, r, world_size, port, backend, device, results))
              for r in range(world_size)]
     for p in procs:
         p.start()

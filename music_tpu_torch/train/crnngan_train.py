@@ -19,13 +19,25 @@ branch's arithmetic runs.  The steps take their noise (``[T, B,
 noise_dim]`` uniforms; a test feeds JAX's) or draw it from the seed's
 stream of ``torch.Generator``s.  Batch orders are JAX's
 (``np.random.default_rng(epoch)`` while pretraining, ``default_rng(0)`` for
-every GAN epoch).  Not here: the mesh (data and model parallelism;
-ROADMAP.md, A11).
+every GAN epoch).
+
+``mesh=`` runs it on a ``(data, seq, model)`` mesh of ranks
+(:class:`~music_tpu_torch.parallel.gan_tp.TrainerMesh`): each data rank
+takes its rows of every batch and its own noise, the losses are averaged
+and the gradients summed over ``data``, feature matching averages the
+feature means over the batch, and both gates read D's statistics averaged
+over ``data``, so that every rank takes the same branch (a rank that took
+the other alone would wait on a collective the rest never call).  With
+``model``, D is stored gate-repacked and split over the hidden units
+(:mod:`music_tpu_torch.parallel.rnn_tp`); :meth:`CRnnGanTrainer.state`
+gathers and unpacks it, so checkpoints hold torch's gate order whatever
+the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import NamedTuple
 
@@ -37,7 +49,8 @@ from music_tpu_torch.core import optim
 from music_tpu_torch.core.prng import KeySeq
 from music_tpu_torch.generate.wavenet_generate import resolve_device
 from music_tpu_torch.models import crnngan as cg
-from music_tpu_torch.train.seqgan_train import refuse_mesh
+from music_tpu_torch.parallel import gan_tp
+from music_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -87,22 +100,45 @@ class GanStep(NamedTuple):
 
 class CRnnGanTrainer:
     """G and D parameters with their optimizer states on one ``device``
-    (default CUDA, which must exist; ``"cpu"`` on request)."""
+    (default CUDA, which must exist; ``"cpu"`` on request), or on each rank
+    of ``mesh`` (its device; the ``model`` size must divide the hidden
+    width)."""
 
-    def __init__(self, tc: CRnnGanTrainConfig, seed: int = 0, mesh=None,
+    def __init__(self, tc: CRnnGanTrainConfig, seed: int = 0, mesh: Mesh | None = None,
                  device: str | torch.device = "cuda"):
-        refuse_mesh(mesh)
         if tc.g_objective not in ("auto", "fm", "adv"):
             raise ValueError(f"unknown g_objective {tc.g_objective!r}")
         self.tc = tc
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.par = gan_tp.TrainerMesh(mesh)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.keys = KeySeq(seed)
         self.g_params = cg.init_generator(self.keys.next(), tc.cfg, self.device)
-        self.d_params = cg.init_discriminator(self.keys.next(), tc.cfg, self.device)
+        self.d_specs = gan_tp.crnngan_d_specs()
+        self.d_params = self._d_layout(cg.init_discriminator(self.keys.next(), tc.cfg,
+                                                             self.device))
         self.g_tx = optim.chain(optim.clip_by_global_norm(tc.grad_clip), optim.adam(tc.g_lr))
-        self.d_tx = optim.chain(optim.clip_by_global_norm(tc.grad_clip), optim.adam(tc.d_lr))
+        self.d_tx = optim.chain(
+            optim.clip_by_global_norm(tc.grad_clip, self.par.global_norm(self.d_specs)),
+            optim.adam(tc.d_lr))
         self.g_opt = self.g_tx.init(self.g_params)
         self.d_opt = self.d_tx.init(self.d_params)
+        self._d_forward = (functools.partial(gan_tp.crnngan_forward_tp,
+                                             group=self.par.model_group)
+                           if self.par.tp else cg.discriminator_forward)
+
+    def _d_layout(self, d_params: dict) -> dict:
+        """Whole D in torch's gate order -> the layout the trainer keeps it
+        in: on a ``model`` mesh repacked and this rank's blocks."""
+        if not self.par.tp:
+            return d_params
+        return self.par.shard(gan_tp.repack_crnngan_d(d_params, self.par.m), self.d_specs)
+
+    def _torch_layout(self, d_params: dict) -> dict:
+        """The inverse of :meth:`_d_layout`: whole, in torch's gate order."""
+        if not self.par.tp:
+            return d_params
+        return gan_tp.unpack_crnngan_d(self.par.gather(d_params, self.d_specs), self.par.m)
 
     def _noise(self, n: int, length: int, batch: int, generator, noise) -> torch.Tensor:
         """``n`` noise slabs ``[length, batch, noise_dim]``: ``noise`` or a
@@ -113,7 +149,7 @@ class CRnnGanTrainer:
             if tuple(noise.shape) != shape:
                 raise ValueError(f"noise {tuple(noise.shape)} != expected {shape}")
             return noise.to(self.device, torch.float32)
-        generator = generator or self.keys.next(self.device)
+        generator = generator or self.keys.next(self.device, self.par.data_index)
         return torch.rand(shape, generator=generator, device=self.device)
 
     def _meta(self, meta) -> torch.Tensor | None:
@@ -126,14 +162,16 @@ class CRnnGanTrainer:
     def pre_step(self, real: torch.Tensor, meta: torch.Tensor | None = None, *,
                  generator: torch.Generator | None = None,
                  noise: torch.Tensor | None = None) -> torch.Tensor:
-        """One MSE pretraining update of G on ``real [B, T, 4]``; ``noise``
-        ``[1, T, B, noise_dim]``.  Returns the loss."""
+        """One MSE pretraining update of G on ``real [B, T, 4]`` (on a mesh,
+        this rank's rows); ``noise`` ``[1, T, B, noise_dim]``.  Returns the
+        loss."""
         cfg = self.tc.cfg
         noise = self._noise(1, real.shape[1], real.shape[0], generator, noise)[0]
         meta = self._meta(meta)
         self.g_params, self.g_opt, loss = optim.grad_update(
             self.g_tx, self.g_params, self.g_opt,
-            lambda p: cg.g_pretrain_loss(p, real, cfg, meta, noise=noise))
+            lambda p: self.par.loss(cg.g_pretrain_loss(p, real, cfg, meta, noise=noise)),
+            self.par.reduce_grads)
         return loss
 
     def gan_step(self, real: torch.Tensor, meta: torch.Tensor | None = None, *,
@@ -146,49 +184,58 @@ class CRnnGanTrainer:
         neither D nor its Adam state moves); then G takes one against the
         updated D, by feature matching (fakes from ``noise[1]``) or
         adversarially (``noise[2]``) as ``g_objective`` says.  ``noise``:
-        ``[3, song_length, B, noise_dim]``."""
-        tc, cfg = self.tc, self.tc.cfg
+        ``[3, song_length, B, noise_dim]``.
+
+        On a mesh ``real``, ``meta`` and ``noise`` are this rank's rows; the
+        losses, D's accuracy and its mean decision on the fakes are the
+        global batch's (averaged over ``data`` before the gates read them)."""
+        tc, cfg, par = self.tc, self.tc.cfg, self.par
         B = real.shape[0]
         noise = self._noise(3, cfg.song_length, B, generator, noise)
         meta = self._meta(meta)
         with torch.no_grad():
             fake = cg.generate(self.g_params, cfg, B, meta=meta, noise=noise[0])
         d_live = optim.live(self.d_params)
-        (p_real, _), (p_fake, _) = cg.discriminator_pair(d_live, real, fake, cfg, meta)
-        d_loss = cg.d_loss_from(p_real, p_fake)
+        (p_real, _), (p_fake, _) = cg.discriminator_pair(d_live, real, fake, cfg, meta,
+                                                         self._d_forward)
+        d_loss = par.loss(cg.d_loss_from(p_real, p_fake))
         d_acc = 0.5 * ((p_real > 0.5).float().mean() + (p_fake < 0.5).float().mean())
+        d_acc, mean_p_fake = par.mean(torch.stack([d_acc, p_fake.detach().float().mean()]))
         # both gates compare in float32, as lax.cond's predicates do
         d_trained = bool(d_acc < tc.d_too_strong)
         if d_trained:
-            grads = optim.tree_grads(d_loss, d_live)
+            grads = par.reduce_grads(optim.tree_grads(d_loss, d_live))
             with torch.no_grad():
                 updates, self.d_opt = self.d_tx.update(grads, self.d_opt, self.d_params)
                 self.d_params = optim.apply_updates(self.d_params, updates)
         fm = tc.g_objective == "fm" or (
-            tc.g_objective == "auto" and bool(p_fake.mean() < tc.feature_matching_below))
+            tc.g_objective == "auto" and bool(mean_p_fake < tc.feature_matching_below))
         del d_live, p_real, p_fake
 
         def g_loss(g):
-            if fm:
+            if fm:  # global already: the feature means are averaged over (data, seq)
                 return cg.g_feature_matching_loss(g, self.d_params, real, cfg, meta,
-                                                  noise=noise[1])
-            return cg.g_adv_loss(g, self.d_params, B, cfg, meta, noise=noise[2])
+                                                  noise=noise[1], d_forward=self._d_forward,
+                                                  group=par.loss_group)
+            return par.loss(cg.g_adv_loss(g, self.d_params, B, cfg, meta, noise=noise[2],
+                                            d_forward=self._d_forward))
 
         self.g_params, self.g_opt, gl = optim.grad_update(self.g_tx, self.g_params,
-                                                          self.g_opt, g_loss)
+                                                          self.g_opt, g_loss, par.reduce_grads)
         return GanStep(gl, d_loss.detach(), d_acc, d_trained, fm)
 
     # ----- phases -----------------------------------------------------------
 
     def _batches(self, data: np.ndarray, meta: np.ndarray | None, order: np.ndarray):
         """``(real, meta)`` batches of ``batch_size`` rows in ``order`` (the
-        last partial batch dropped), on the device."""
+        last partial batch dropped), on the device; on a mesh this rank's
+        rows of each."""
         B = self.tc.batch_size
         data_t = torch.from_numpy(np.asarray(data, np.float32)).to(self.device)
         meta_t = self._meta(meta)
         order_t = torch.from_numpy(np.asarray(order, np.int64)).to(self.device)
         for i in range(0, len(data) - B + 1, B):
-            idx = order_t[i : i + B]
+            idx = order_t[i : i + B][self.par.rows(B)]
             yield data_t[idx], (None if meta_t is None else meta_t[idx])
 
     def pretrain(self, data: np.ndarray, epochs: int = 1,
@@ -216,14 +263,23 @@ class CRnnGanTrainer:
     # ----- checkpoints ------------------------------------------------------
 
     def state(self) -> dict:
-        return {"g_params": self.g_params, "d_params": self.d_params,
-                "g_opt": self.g_opt, "d_opt": self.d_opt}
+        """The training state under the JAX ``state()``'s keys, D and its
+        Adam moments whole and in torch's gate order whatever the mesh
+        (every rank of a mesh must call it)."""
+        return {"g_params": self.g_params, "d_params": self._torch_layout(self.d_params),
+                "g_opt": self.g_opt,
+                "d_opt": gan_tp.map_param_trees(self.d_opt, self._torch_layout)}
 
     def save(self, ckpt_dir: str | Path, step: int):
-        ckpt_lib.save(ckpt_dir, step, self.state())
+        """Write :meth:`state` (on a mesh, every rank calls it and the first
+        writes)."""
+        ckpt_lib.save(ckpt_dir, step, self.state(), mesh=self.mesh)
 
     def restore(self, ckpt_dir: str | Path) -> int:
+        """Resume from the latest checkpoint in ``ckpt_dir`` (either
+        package's, from any mesh); the step, 0 when there is none."""
         state, step = ckpt_lib.restore_or_init(ckpt_dir, self.state())
-        self.g_params, self.d_params = state["g_params"], state["d_params"]
-        self.g_opt, self.d_opt = state["g_opt"], state["d_opt"]
+        self.g_params, self.d_params = state["g_params"], self._d_layout(state["d_params"])
+        self.g_opt = state["g_opt"]
+        self.d_opt = gan_tp.map_param_trees(state["d_opt"], self._d_layout)
         return step

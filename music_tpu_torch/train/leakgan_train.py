@@ -13,13 +13,21 @@ The JAX trainer fuses each phase into one program; here each phase is a
 Python loop over batches with public steps (:meth:`LeakGanTrainer.pre_step`,
 :meth:`~LeakGanTrainer.d_step`, :meth:`~LeakGanTrainer.adv_step`) that take
 their batch and, for tests, their Gumbel noise and dropout masks.  Batch
-orders come from ``torch.Generator``s and differ from JAX's.  Not here:
-the mesh (data and model parallelism; ROADMAP.md, A11).
+orders come from ``torch.Generator``s and differ from JAX's.
+
+``mesh=`` runs it on a ``(data, seq, model)`` mesh of ranks
+(:class:`~music_tpu_torch.parallel.gan_tp.TrainerMesh`): each data rank
+its rows and its own randomness, the losses averaged and the gradients
+summed over ``data``, the rollout rewards ranked over the global batch; D
+split over ``model``, every engine pass reading its split forward.
+:meth:`LeakGanTrainer.state` gathers the split leaves, so checkpoints are
+those of one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Any
 
@@ -33,7 +41,8 @@ from music_tpu_torch.generate.wavenet_generate import resolve_device
 from music_tpu_torch.models import leakgan as lg
 from music_tpu_torch.models import seqgan as sg
 from music_tpu_torch.ops.rnn import check_token_ids
-from music_tpu_torch.train.seqgan_train import refuse_mesh
+from music_tpu_torch.parallel import gan_tp
+from music_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -60,17 +69,27 @@ class LeakGanTrainConfig:
 
 class LeakGanTrainer:
     """G, D and oracle parameters with the three optimizer states on one
-    ``device`` (default CUDA, which must exist; ``"cpu"`` on request)."""
+    ``device`` (default CUDA, which must exist; ``"cpu"`` on request), or on
+    each rank of ``mesh`` (its device): ``data`` splits the corpus and the
+    generated batches (the global batch is ``batch_size`` times the data
+    size), ``model`` splits D by
+    :func:`~music_tpu_torch.parallel.gan_tp.discriminator_specs` (every
+    ``num_filters`` entry must divide by it)."""
 
-    def __init__(self, tc: LeakGanTrainConfig, seed: int = 0, mesh=None,
+    def __init__(self, tc: LeakGanTrainConfig, seed: int = 0, mesh: Mesh | None = None,
                  device: str | torch.device = "cuda"):
-        refuse_mesh(mesh)
         self.tc = tc
         cfg = tc.cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.par = gan_tp.TrainerMesh(mesh)
+        if self.par.tp:
+            gan_tp.check_filters(cfg, self.par.m)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.keys = KeySeq(seed)
         self.g_params = lg.init_generator(self.keys.next(), cfg, tc.batch_size, self.device)
-        self.d_params = lg.init_discriminator(self.keys.next(), cfg, self.device)
+        self.d_specs = gan_tp.discriminator_specs(cfg)
+        self.d_params = self.par.shard(lg.init_discriminator(self.keys.next(), cfg, self.device),
+                                       self.d_specs)
         # the oracle of the NLL metric: an LSTM language model over the same
         # vocabulary, N(0, 1) everywhere by default
         self.oracle_cfg = sg.GeneratorConfig(
@@ -79,11 +98,12 @@ class LeakGanTrainer:
         self.oracle_params = sg.init_generator(self.keys.next(), self.oracle_cfg,
                                                init=tc.oracle_init, device=self.device)
 
-        def tx(lr):
-            return optim.chain(optim.clip_by_global_norm(tc.grad_clip),
+        def tx(lr, global_norm=None):
+            return optim.chain(optim.clip_by_global_norm(tc.grad_clip, global_norm),
                                optim.adam(optim.step_lr(lr, tc.decay_step_size, tc.decay_rate)))
 
-        self.m_tx, self.w_tx, self.d_tx = tx(tc.m_lr), tx(tc.w_lr), tx(tc.d_lr)
+        self.m_tx, self.w_tx = tx(tc.m_lr), tx(tc.w_lr)
+        self.d_tx = tx(tc.d_lr, self.par.global_norm(self.d_specs))
         # the adversarial learning rates: the same chain, so the Adam state
         # is shared with the supervised updates
         self.m_tx_adv = tx(tc.m_lr * tc.adv_lr_scale)
@@ -92,10 +112,18 @@ class LeakGanTrainer:
         self.w_opt = self.w_tx.init(self.g_params["worker"])
         self.d_opt = self.d_tx.init(self.d_params)
         self._frozen_d, self._freeze_age = None, 0
+        if self.par.tp:
+            group = self.par.model_group
+            self._d_forward = functools.partial(gan_tp.leakgan_forward_tp, group=group)
+            self._dis_loss = functools.partial(gan_tp.leakgan_dis_loss_tp, group=group)
+        else:
+            self._d_forward, self._dis_loss = None, lg.dis_loss
 
-    def _generator(self) -> torch.Generator:
-        """A fresh generator on the trainer's device, from the seed's stream."""
-        return self.keys.next(self.device)
+    def _generator(self, local: bool = True) -> torch.Generator:
+        """A fresh generator on the trainer's device, from the seed's stream:
+        on a mesh this rank's (its data index folded in), or with
+        ``local=False`` the one every rank draws alike."""
+        return self.keys.next(self.device, self.par.data_index if local else 0)
 
     def _tokens(self, data: np.ndarray) -> torch.Tensor:
         """Host token ids, checked against the vocabulary, on the device."""
@@ -109,6 +137,9 @@ class LeakGanTrainer:
         return self._tokens(data[:n])
 
     def _update_g(self, m_grads, w_grads, m_tx, w_tx) -> None:
+        """Both modules' updates, on the gradients summed over ``data``."""
+        grads = self.par.reduce_grads({"manager": m_grads, "worker": w_grads})
+        m_grads, w_grads = grads["manager"], grads["worker"]
         with torch.no_grad():
             m_up, self.m_opt = m_tx.update(m_grads, self.m_opt, self.g_params["manager"])
             w_up, self.w_opt = w_tx.update(w_grads, self.w_opt, self.g_params["worker"])
@@ -128,9 +159,9 @@ class LeakGanTrainer:
         g = optim.live(self.g_params)
         rets = lg.pre_engine(g, self.d_params, real_data, cfg=cfg, generator=generator,
                              noise=noise, dropout_generator=dropout_generator,
-                             dropout_mask=dropout_mask)
-        ml = lg.pre_manager_loss(rets["real_goal"], rets["delta_feature"])
-        wl = lg.pre_worker_loss(real_data, rets["prediction"], cfg.vocab_size)
+                             dropout_mask=dropout_mask, d_forward=self._d_forward)
+        ml = self.par.loss(lg.pre_manager_loss(rets["real_goal"], rets["delta_feature"]))
+        wl = self.par.loss(lg.pre_worker_loss(real_data, rets["prediction"], cfg.vocab_size))
         m_grads = optim.tree_grads(ml, g["manager"], retain_graph=True)
         w_grads = optim.tree_grads(wl, g["worker"])
         self._update_g(m_grads, w_grads, self.m_tx, self.w_tx)
@@ -141,9 +172,10 @@ class LeakGanTrainer:
         """One update of D on cross-entropy plus the output layer's L2."""
         self.d_params, self.d_opt, loss = optim.grad_update(
             self.d_tx, self.d_params, self.d_opt,
-            lambda p: lg.dis_loss(p, tokens, labels, self.tc.cfg,
-                                  dropout_generator=dropout_generator,
-                                  dropout_mask=dropout_mask))
+            lambda p: self.par.loss(self._dis_loss(p, tokens, labels, self.tc.cfg,
+                                                   dropout_generator=dropout_generator,
+                                                   dropout_mask=dropout_mask)),
+            self.par.reduce_grads)
         return loss
 
     def adv_step(self, d_params: dict | None = None, *, generator=None, adv_noise=None,
@@ -162,14 +194,17 @@ class LeakGanTrainer:
         g = optim.live(self.g_params)
         rets = lg.adv_engine(g, d, tc.batch_size, cfg=cfg, temperature=cfg.temperature,
                              generator=generator, noise=adv_noise,
-                             dropout_generator=dropout_generator, dropout_mask=dropout_mask)
+                             dropout_generator=dropout_generator, dropout_mask=dropout_mask,
+                             d_forward=self._d_forward)
         rewards = lg.get_rewards(self.g_params, d, rets["gen_token"], cfg=cfg,
                                  rollout_num=tc.rollout_num, temperature=cfg.temperature,
                                  delta=tc.reward_delta, generator=generator,
-                                 noise=rollout_noise)
-        ml = lg.adv_manager_loss(rewards, rets["real_goal"], rets["delta_feature"])
-        wl = lg.adv_worker_loss(rets["all_goal"], rets["delta_feature_for_worker"],
-                                rets["gen_token"], rets["prediction"], cfg.vocab_size)
+                                 noise=rollout_noise, d_forward=self._d_forward,
+                                 group=self.par.data_group)
+        ml = self.par.loss(lg.adv_manager_loss(rewards, rets["real_goal"], rets["delta_feature"]))
+        wl = self.par.loss(lg.adv_worker_loss(rets["all_goal"], rets["delta_feature_for_worker"],
+                                              rets["gen_token"], rets["prediction"],
+                                              cfg.vocab_size))
         grads = optim.tree_grads(ml + wl, g)
         self._update_g(grads["manager"], grads["worker"], self.m_tx_adv, self.w_tx_adv)
         return ml.detach(), wl.detach()
@@ -178,7 +213,7 @@ class LeakGanTrainer:
 
     def _shuffled(self, n: int) -> torch.Tensor:
         """A permutation of ``n`` rows cut to whole batches, on the device."""
-        perm = torch.randperm(n, generator=self.keys.next())
+        perm = torch.randperm(n, generator=self.keys.next(index=self.par.data_index))
         return perm[: (n // self.tc.batch_size) * self.tc.batch_size].to(self.device)
 
     def _gen_batches(self, n: int, generator: torch.Generator) -> torch.Tensor:
@@ -189,20 +224,29 @@ class LeakGanTrainer:
         rows = self.g_params["manager"]["goal_init"].repeat(n_batches, 1)
         return lg.gen_samples(self.g_params, self.d_params, len(rows), cfg=cfg,
                               temperature=cfg.temperature, generator=generator,
-                              goal_init_rows=rows)[:n]
+                              goal_init_rows=rows, d_forward=self._d_forward)[:n]
 
     def generate_samples(self, n: int, out_path: str | Path | None = None) -> np.ndarray:
-        """``n`` negative samples; written as ``.npy`` to ``out_path`` if given."""
-        samples = self._gen_batches(n, self._generator()).cpu().numpy().astype(np.int32)
-        if out_path is not None:
+        """``n`` negative samples (on a mesh, the same on every rank);
+        written as ``.npy`` to ``out_path`` if given (by the mesh's first
+        rank)."""
+        samples = self._gen_batches(n, self._generator(local=False))
+        samples = samples.cpu().numpy().astype(np.int32)
+        if out_path is not None and (self.mesh is None or self.mesh.is_main):
             Path(out_path).parent.mkdir(parents=True, exist_ok=True)
             np.save(out_path, samples)
         return samples
 
+    def _my_rows(self, data: np.ndarray, what: str) -> torch.Tensor:
+        """This rank's rows of the whole batches of ``data``."""
+        data = self._whole_batches(data, what)
+        return data[self.par.rows(len(data))]
+
     def pretrain_generator(self, real_data: np.ndarray, epochs: int = 1):
         """Interleaved Manager/Worker pretraining epochs over shuffled
-        batches; the last batch's ``(manager_loss, worker_loss)``."""
-        data = self._whole_batches(real_data, "real_data")
+        batches (on a mesh, of this rank's rows); the last batch's
+        ``(manager_loss, worker_loss)``."""
+        data = self._my_rows(real_data, "real_data")
         gen = self._generator()
         ml = wl = None
         for _ in range(epochs):
@@ -212,8 +256,9 @@ class LeakGanTrainer:
 
     def pretrain_discriminator(self, real_data: np.ndarray, epochs: int = 1) -> float:
         """Regenerate as many negatives as positives, then ``epochs``
-        shuffled cross-entropy epochs over the 2N rows; the last loss."""
-        real = self._whole_batches(real_data, "real_data")
+        shuffled cross-entropy epochs over the 2N rows (on a mesh, N this
+        rank's rows); the last loss."""
+        real = self._my_rows(real_data, "real_data")
         N = len(real)
         gen = self._generator()
         tokens = torch.cat([real, self._gen_batches(N, gen)])
@@ -258,15 +303,16 @@ class LeakGanTrainer:
     def oracle_nll(self, noise: torch.Tensor | None = None) -> float:
         """NLL under the oracle of one batch of G's samples."""
         cfg = self.tc.cfg
+        gen = None if noise is not None else self._generator(local=False)
         samples = lg.gen_samples(self.g_params, self.d_params, self.tc.batch_size, cfg=cfg,
-                                 temperature=cfg.temperature,
-                                 generator=None if noise is not None else self._generator(),
-                                 noise=noise)
+                                 temperature=cfg.temperature, generator=gen, noise=noise,
+                                 d_forward=self._d_forward)
         return float(sg.generator_nll(self.oracle_params, samples, self.oracle_cfg))
 
     def oracle_samples(self, n: int) -> np.ndarray:
-        """Synthetic real data: ``n`` sequences from the oracle."""
-        gen = self._generator()
+        """Synthetic real data: ``n`` sequences from the oracle (the same on
+        every rank of a mesh)."""
+        gen = self._generator(local=False)
         out = [sg.generate(self.oracle_params, self.oracle_cfg, self.tc.batch_size,
                            generator=gen) for _ in range(-(-n // self.tc.batch_size))]
         return torch.cat(out).cpu().numpy().astype(np.int32)[:n]
@@ -278,11 +324,12 @@ class LeakGanTrainer:
         row).  ``noise``: one ``[seq_len + 1, batch, V]`` slab per batch for
         the Worker's free-running draws."""
         data = self._whole_batches(data, "data")
-        gen = None if noise is not None else self._generator()
+        gen = None if noise is not None else self._generator(local=False)
         vals = []
         for i, batch in enumerate(data.split(self.tc.batch_size)):
             rets = lg.pre_engine(self.g_params, self.d_params, batch, cfg=self.tc.cfg,
-                                 generator=gen, noise=None if noise is None else noise[i])
+                                 generator=gen, noise=None if noise is None else noise[i],
+                                 d_forward=self._d_forward)
             logp = torch.log(torch.clamp(rets["prediction"], 1e-20, 1.0))
             vals.append(-torch.gather(logp, -1, batch[..., None]).mean())
         return float(np.mean([float(v) for v in vals]))
@@ -290,17 +337,26 @@ class LeakGanTrainer:
     # ------------------------------------------------------------------
 
     def state(self) -> dict[str, Any]:
-        """The full training state, under the JAX ``state()``'s keys."""
-        return {"g_params": self.g_params, "d_params": self.d_params,
-                "m_opt": self.m_opt, "w_opt": self.w_opt, "d_opt": self.d_opt}
+        """The full training state, under the JAX ``state()``'s keys; on a
+        ``model`` mesh D and its Adam moments gathered whole (every rank
+        must call it)."""
+        gather = functools.partial(self.par.gather, specs=self.d_specs)
+        return {"g_params": self.g_params, "d_params": gather(self.d_params),
+                "m_opt": self.m_opt, "w_opt": self.w_opt,
+                "d_opt": gan_tp.map_param_trees(self.d_opt, gather)}
 
     def save(self, ckpt_dir: str | Path, step: int, max_checkpoints: int = 10):
-        ckpt_lib.save(ckpt_dir, step, self.state(), max_checkpoints=max_checkpoints)
+        """Write :meth:`state` (on a mesh, every rank calls it and the first
+        writes)."""
+        ckpt_lib.save(ckpt_dir, step, self.state(), max_checkpoints=max_checkpoints,
+                      mesh=self.mesh)
 
     def restore(self, ckpt_dir: str | Path) -> int:
         """Resume from the latest checkpoint in ``ckpt_dir`` (either
-        package's); the step, 0 when there is none."""
+        package's, from any mesh); the step, 0 when there is none."""
         state, step = ckpt_lib.restore_or_init(ckpt_dir, self.state())
-        self.g_params, self.d_params = state["g_params"], state["d_params"]
-        self.m_opt, self.w_opt, self.d_opt = state["m_opt"], state["w_opt"], state["d_opt"]
+        shard = functools.partial(self.par.shard, specs=self.d_specs)
+        self.g_params, self.d_params = state["g_params"], shard(state["d_params"])
+        self.m_opt, self.w_opt = state["m_opt"], state["w_opt"]
+        self.d_opt = gan_tp.map_param_trees(state["d_opt"], shard)
         return step

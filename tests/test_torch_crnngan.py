@@ -7,7 +7,9 @@ The noise is JAX's own: ``jax.random.uniform`` over the key (or key
 split) each JAX function draws from, fed to the port."""
 
 import dataclasses
+import functools
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from music_tpu_torch.data import midi as tmidi
 from music_tpu_torch.generate import crnngan_generate as tgen
 from music_tpu_torch.models import crnngan as tcg
 from music_tpu_torch.train import crnngan_train as ttrain
+from test_torch_seqgan import split_mesh
 
 ATOL = 1e-5  # forwards, losses and gradients, float32 on both sides
 REL = 1e-5  # params and Adam state after one update, per leaf
@@ -135,11 +138,56 @@ def test_init_has_jax_layout(meta_dim):
 REAL, FAKE, KEY = 4, 5, 6  # the seeds of the model tests' inputs
 
 
+def start_threads(fns: dict):
+    """Run every ``fn`` of ``{name: fn}`` in a thread of its own; returns a
+    ``join()`` that waits and gives ``{name: fn()}`` (re-raising a thread's
+    error).  JAX compiles the threads' programs at once (XLA's compiler does
+    not hold the interpreter lock), where one after another they add up."""
+    out, errors = {}, {}
+
+    def call(name, fn):
+        try:
+            out[name] = fn()
+        except BaseException as e:  # re-raised by join, in the caller's thread
+            errors[name] = e
+
+    threads = [threading.Thread(target=call, args=item) for item in fns.items()]
+    for t in threads:
+        t.start()
+
+    def join():
+        for t in threads:
+            t.join()
+        for e in errors.values():
+            raise e
+        return out
+
+    return join
+
+
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """Every JAX program of the file's comparisons, compiled at once: the
+    model references of both meta widths (:func:`_model_reference`) in
+    threads beside the shared trainer state's steps (:func:`_shared_state`),
+    then the GAN step in every branch's configuration."""
+    models = start_threads({m: functools.partial(_model_reference, m) for m in META_DIMS})
+    shared = _shared_state(tmp_path_factory.mktemp("crnngan_state"))
+    gan = start_threads({b: functools.partial(_branch_step, shared, BRANCHES[b][0])
+                         for b in BRANCHES})
+    return {"models": models(), "shared": shared, "gan": gan()}
+
+
 @pytest.fixture(scope="module", params=META_DIMS, ids=lambda m: f"meta{m}")
-def model_case(request):
+def model_case(request, jax_side):
     """JAX's forwards, losses and gradients at one meta width, on the same
-    inputs as the port's, in one jitted program; and the port's side."""
-    meta_dim = request.param
+    inputs as the port's; and the port's side."""
+    return jax_side["models"][request.param]
+
+
+def _model_reference(meta_dim):
+    """JAX's side of :func:`model_case` at ``meta_dim``, in one jitted
+    program, and the port's inputs."""
     jc, tc = cfgs(meta_dim)
     jg, jd, tg, td = params(meta_dim)
     real, fake, meta = events(REAL), events(FAKE), meta_rows(REAL, meta_dim)
@@ -267,10 +315,9 @@ def _jax_gan_step(jt, real, meta, key):
     return dict(zip(("g_params", "d_params", "g_opt", "d_opt"), out[:4])), *out[4:]
 
 
-@pytest.fixture(scope="module")
-def shared(tmp_path_factory):
+def _shared_state(path):
     """A JAX trainer one pretrain step and one GAN step (D trained) in, so
-    that both Adam states hold non-zero moments, saved as a checkpoint."""
+    that both Adam states hold non-zero moments, saved to ``path``."""
     jt = jtrain.CRnnGanTrainer(_jtc(), seed=0)
     jt.g_params, jt.g_opt, _ = jt._pre_step(jt.g_params, jt.g_opt, jnp.asarray(events(8)),
                                             jnp.asarray(meta_rows(8, META)),
@@ -278,9 +325,14 @@ def shared(tmp_path_factory):
     state = _jax_gan_step(jt, events(9), meta_rows(9, META), jax.random.PRNGKey(9))[0]
     jt.g_params, jt.d_params, jt.g_opt, jt.d_opt = (state[k] for k in state)
     assert int(jt.d_opt[1][0].count) == 1
-    path = tmp_path_factory.mktemp("crnngan_state")
     jt.save(path, 2)
     return jt, path
+
+
+@pytest.fixture(scope="module")
+def shared(jax_side):
+    """The shared JAX trainer and the checkpoint it saved."""
+    return jax_side["shared"]
 
 
 def _port_trainer(shared, **kw):
@@ -318,26 +370,40 @@ BRANCHES = {  # label: (train config overrides, D trained, G by feature matching
 }
 
 
+GAN_REAL, GAN_META, GAN_SEED = events(11), meta_rows(11, META), 11
+
+
+def _branch_step(shared, overrides):
+    """JAX's single-program GAN step from the shared state in a branch's
+    configuration (a trainer each: its gates are baked into its program)."""
+    j, path = shared
+    if overrides:
+        j = jtrain.CRnnGanTrainer(_jtc(**overrides), seed=0)
+        j.restore(path)
+    return _jax_gan_step(j, GAN_REAL, GAN_META, jax.random.PRNGKey(GAN_SEED))
+
+
+@pytest.fixture(scope="module")
+def gan_refs(jax_side):
+    return jax_side["gan"]
+
+
 @pytest.mark.parametrize("branch", list(BRANCHES))
-def test_gan_step_matches_jax(shared, branch):
+def test_gan_step_matches_jax(shared, gan_refs, branch):
     """JAX's single-program GAN step on a key; the port's on the uniforms
     of that key's three splits (fakes from ``k1``, feature matching's from
     ``k2``, the adversarial loss's from ``k3``): the same gate branches,
     losses, params and both Adam states (a frozen D's count unmoved)."""
     overrides, trained, fm = BRANCHES[branch]
-    jt, path = shared
-    if overrides:
-        jt = jtrain.CRnnGanTrainer(_jtc(**overrides), seed=0)
-        jt.restore(path)
     tt = _port_trainer(shared, **overrides)
-    real, meta, key = events(11), meta_rows(11, META), jax.random.PRNGKey(11)
+    real, meta, key = GAN_REAL, GAN_META, jax.random.PRNGKey(GAN_SEED)
     noise = torch.stack([uniform(k) for k in jax.random.split(key, 3)])
     treal, tmeta = torch.from_numpy(real), torch.from_numpy(meta)
     with torch.no_grad():  # D's decisions that the gates read
         fake = tcg.generate(tt.g_params, TC, B, meta=tmeta, noise=noise[0])
         p_real, p_fake = (tcg.discriminator_forward(tt.d_params, x, TC, tmeta)[0].numpy()
                           for x in (treal, fake))
-    state, gl, dl, d_acc = _jax_gan_step(jt, real, meta, key)
+    state, gl, dl, d_acc = gan_refs[branch]
     step = tt.gan_step(treal, tmeta, noise=noise)
     assert (step.d_trained, step.feature_matching) == (trained, fm)
     assert_d_acc(float(step.d_acc), float(d_acc), p_real, p_fake)
@@ -367,7 +433,8 @@ def test_checkpoints_cross_packages(shared, tmp_path):
 
 def test_trainer_phases_run_and_learn():
     """Pretraining lowers the MSE on its data, GAN epochs give finite
-    losses with JAX's batch order; a bad objective and the mesh refused."""
+    losses with JAX's batch order; a bad objective refused, and a model
+    size that does not divide the hidden width."""
     data = events(13, 12) * 0.3
     meta = meta_rows(13, META, 12)
     tt = ttrain.CRnnGanTrainer(_ttc(), seed=1, device="cpu")
@@ -381,8 +448,8 @@ def test_trainer_phases_run_and_learn():
     assert int(tt.g_opt[1][0].count) == 6 * 3 + 3
     with pytest.raises(ValueError, match="g_objective"):
         ttrain.CRnnGanTrainer(_ttc(g_objective="both"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrain.CRnnGanTrainer(_ttc(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="hidden 8 not divisible by model axis 3"):
+        ttrain.CRnnGanTrainer(_ttc(), mesh=split_mesh(3), device="cpu")
 
 
 # ---------------------------------------------------------------------------

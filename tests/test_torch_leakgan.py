@@ -23,7 +23,9 @@ from music_tpu_torch import cli
 from music_tpu_torch.core import checkpoint as tck
 from music_tpu_torch.models import leakgan as tlg
 from music_tpu_torch.train import leakgan_train as ttrain
-from test_torch_seqgan import assert_same_tokens, assert_tree_close, gumbel, keep_mask
+from test_torch_seqgan import (
+    assert_same_tokens, assert_tree_close, gumbel, keep_mask, split_mesh,
+)
 
 PORT = Path(__file__).resolve().parents[1] / "music_tpu_torch"
 ATOL = 1e-5  # forward pieces, engines, losses and rewards, float32 on both sides
@@ -386,8 +388,8 @@ def test_trainer_phases_run(tmp_path):
         tt.pretrain_discriminator(bad)
     with pytest.raises(ValueError, match="smaller than one batch"):
         tt.eval_nll(real[:3])
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrain.LeakGanTrainer(_ttc(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="num_filters entry 8 not divisible by model axis 3"):
+        ttrain.LeakGanTrainer(_ttc(), mesh=split_mesh(3), device="cpu")
 
 
 def test_cli_leakgan_train_grows_vocab_and_resumes(tmp_path, capsys):

@@ -232,6 +232,12 @@ ENTRY_POINTS = {
     "DecodeSession(mesh)": lambda tmp: serving.DecodeSession(
         wn.WaveNetConfig(), {}, mesh=pmesh.make_mesh()),
     "multihost.initialize": lambda tmp: multihost.initialize("127.0.0.1:1", 1, 0),
+    "SeqGanTrainer(mesh)": lambda tmp: sgtrain.SeqGanTrainer(
+        sgtrain.SeqGanConfig(), mesh=pmesh.make_mesh(pmesh.MeshSpec(data=-1))),
+    "LeakGanTrainer(mesh)": lambda tmp: lgtrain.LeakGanTrainer(
+        lgtrain.LeakGanTrainConfig(), mesh=pmesh.make_mesh(pmesh.MeshSpec(data=-1))),
+    "CRnnGanTrainer(mesh)": lambda tmp: cgtrain.CRnnGanTrainer(
+        cgtrain.CRnnGanTrainConfig(), mesh=pmesh.make_mesh(pmesh.MeshSpec(data=-1))),
     "CLI wavenet train --coordinator": lambda tmp: cli.main(
         ["wavenet", "train", "--coordinator", "127.0.0.1:1", "--num-processes", "1",
          "--process-id", "0"]),

@@ -21,6 +21,7 @@ from music_tpu.train import seqgan_train as jtrain
 from music_tpu_torch import cli
 from music_tpu_torch.core import checkpoint as tck
 from music_tpu_torch.models import seqgan as tsg
+from music_tpu_torch.parallel.mesh import GROUPS, Mesh, MeshSpec, make_mesh
 from music_tpu_torch.train import seqgan_train as ttrain
 from music_tpu_torch.utils.parity import tie_aware_check
 
@@ -93,6 +94,12 @@ def assert_tree_close(ours, theirs, rel=REL):
         else:
             np.testing.assert_allclose(got, want, rtol=0, err_msg=path,
                                        atol=rel * max(float(np.abs(want).max()), 1e-30))
+
+
+def split_mesh(m: int) -> Mesh:
+    """Rank 0's view of a ``model=m`` mesh with no process group: enough for
+    a trainer's refusal, which comes before any collective."""
+    return Mesh(np.arange(m).reshape(1, 1, m), 0, torch.device("cpu"), dict.fromkeys(GROUPS))
 
 
 def test_configs_mirror_jax():
@@ -313,7 +320,8 @@ def test_oracle_nll_matches_jax(shared):
 def test_trainer_phases_run_and_learn(shared):
     """The phases end to end on the CPU: oracle samples in range, MLE
     lowers the NLL of the positives, D and adversarial rounds give finite
-    losses, and out-of-range ids are refused on the host."""
+    losses, and out-of-range ids are refused on the host; a model size
+    that does not divide the filters is refused, a mesh of one rank taken."""
     tt = ttrain.SeqGanTrainer(ttrain.SeqGanConfig(g=TG, d=TD, **CFG), seed=1, device="cpu")
     positive = tt.oracle_samples(8)
     assert positive.shape == (8, 10) and positive.dtype == np.int32
@@ -330,8 +338,11 @@ def test_trainer_phases_run_and_learn(shared):
     bad[0, 0] = 50
     with pytest.raises(ValueError, match=r"\[0, 50\)"):
         tt.pretrain_generator(bad)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrain.SeqGanTrainer(ttrain.SeqGanConfig(g=TG, d=TD), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="num_filters entry 8 not divisible by model axis 3"):
+        ttrain.SeqGanTrainer(ttrain.SeqGanConfig(g=TG, d=TD), mesh=split_mesh(3), device="cpu")
+    one = ttrain.SeqGanTrainer(ttrain.SeqGanConfig(g=TG, d=TD), mesh=make_mesh(
+        MeshSpec(), device="cpu"))  # a mesh of one rank: the single-device trainer
+    assert one.device == torch.device("cpu") and not one.par.tp
 
 
 def test_sample_files_equal_jax(tmp_path):
