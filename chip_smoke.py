@@ -117,8 +117,9 @@ float32 matmuls in full float32):
 
 19. ``seqgan train`` (``params/seqgan``: V = 5000, E = H = 32, T = 20, batch
     64, rollout 16, D of 1720 filters) in a temporary working directory:
-    the oracle corpus, MLE pretraining, D pretraining and 1 adversarial
-    round (the params ship 2); both sample files checked and every loss and
+    the oracle corpus cut to 512 sequences (the params ship 1,024), MLE
+    pretraining, D pretraining and 1 adversarial round (the params ship
+    2); both sample files checked and every loss and
     oracle NLL finite; the seconds of each MLE epoch, PG step (with its
     rollout) and D phase; ``rollout_rewards`` alone for 19,456 streams (ms,
     peak memory), a PG step's device busy share (``torch.profiler``) and
@@ -127,7 +128,7 @@ float32 matmuls in full float32):
     noise (rewards within 1e-5, params and Adam state within 1e-5 of each
     leaf's scale);
 20. ``leakgan train`` (``params/leak_gan``: V = 5258, G = 1720, goal 16,
-    H = 32, T = 20, step 5, batch 64, rollout 4) on a 512-sequence corpus
+    H = 32, T = 20, step 5, batch 64, rollout 4) on a 256-sequence corpus
     that the target-LSTM oracle writes from a seed, one epoch of each phase,
     then again resuming from its checkpoint; the seconds of the pre, D and
     adv phases; ``get_rewards`` alone for 1,024 streams, an adv step's busy
@@ -137,7 +138,7 @@ float32 matmuls in full float32):
 C-RNN-GAN at the shipped width (no decode kernel on its path; float32
 matmuls in full float32):
 
-21. a corpus of 32 songs written from a seed (2 genres x 2 composers,
+21. a corpus of 16 songs written from a seed (2 genres x 2 composers,
     120-200 notes each); ``crnngan train`` (``params/c_rnn_gan``: H = 350,
     noise 100, T = 100, batch 4, conditioned) with the epochs cut to 1
     pretrain and 1 GAN epoch; ``crnngan generate`` from its checkpoint,
@@ -190,7 +191,16 @@ The mesh code path (``music_tpu_torch.parallel``):
     one device's: the losses and every leaf of the state within 1e-5
     (LeakGAN's ``goal_init``, whose rows the data ranks share, left out on
     ``data=2``);
-24. a JSON line describing each kernel (times in ms per decode step, with
+The GAN families trained to a result:
+
+24. the three GAN quality runs of ``music_tpu_torch.runs``
+    (``crnngan_quality_run``, ``seqgan_quality_run``,
+    ``leakgan_oracle_run``) in process at the shipped widths, a few steps
+    of each stage on a cut corpus and schedule: each last JSON line must
+    hold the JAX script's keys, finite NLLs and distances and the card's
+    name, each exit code must follow its pass flag, and the C-RNN-GAN
+    run's four ``.mid`` files must re-parse to its event counts;
+25. a JSON line describing each kernel (times in ms per decode step, with
     the least time the card could take for the same step, ``bound_ms``;
     launches counted over the main-path phases 4, 7, 10, 13, 17, 18, 22
     and 23), then the device JSON as the last line.
@@ -381,32 +391,6 @@ def timing_wrappers(dev, classes_methods: list[tuple[type, str]]):
     return records, undo
 
 
-def device_busy_share(dev, fn) -> tuple[float, float, float | None]:
-    """``fn()``'s wall seconds (host clock, device synchronised), its device
-    busy seconds (the CUDA activities ``torch.profiler`` records over a
-    second call) and their ratio; ``None`` when the profiler saw no device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sync(dev)
-    t0 = time.perf_counter()
-    fn()
-    sync(dev)
-    wall = time.perf_counter() - t0
-    if dev.type != "cuda":
-        return wall, 0.0, None
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync(dev)
-    # the raw device events: summed in milliseconds, where building
-    # prof.events() takes seconds for a step of ~30k launches
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) * 1e-9
-    return wall, busy, (busy / wall if busy > 0 else None)
-
-
 def busy_line(wall: float, busy: float, share: float | None) -> str:
     return (f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms = "
             + (f"{100 * share:.1f}%" if share is not None
@@ -506,6 +490,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
     from music_tpu_torch.models import seqgan as sg
     from music_tpu_torch.ops.sampling import gumbel_noise
     from music_tpu_torch.train import leakgan_train, seqgan_train
+    from music_tpu_torch.utils.profiling import device_busy_share
 
     params_root = params_root or ROOT / "music_tpu_torch" / "params"
 
@@ -515,10 +500,12 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
     cwd = os.getcwd()
     os.chdir(work_dir)
     try:
-        # -- 19. SeqGAN at the shipped width, 1 adversarial round (the params
-        # ship 2; the script's time budget holds phase 23's GAN meshes too)
+        # -- 19. SeqGAN at the shipped width, 512 sequences and 1 adversarial
+        # round (the params ship 1,024 and 2; the script's time budget holds
+        # phases 23-24 too)
         t_phase = time.perf_counter()
         p = {**load_params_dir(params_root / "seqgan")["params"], "adversarial_rounds": 1}
+        p["generated_num"] = min(p["generated_num"], 512)
         (work_dir / "seqgan_params").mkdir()
         (work_dir / "seqgan_params" / "params.json").write_text(json.dumps(p))
         records, undo = timing_wrappers(dev, [
@@ -609,8 +596,8 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
               f"{err_o:.2g} of their scale (tolerance 1e-5)", flush=True)
         seconds["19"] = time.perf_counter() - t_phase
 
-        # -- 20. LeakGAN at the shipped width on an oracle corpus of 512 (the
-        # script's time budget holds phase 23's GAN meshes too)
+        # -- 20. LeakGAN at the shipped width on an oracle corpus of 256 (the
+        # script's time budget holds phases 23-24 too)
         t_phase = time.perf_counter()
         lp = load_params_dir(params_root / "leak_gan")
         lcfg = lg.LeakGanConfig.from_json(lp["leak_gan_params"])
@@ -618,7 +605,7 @@ def gan_phases(card: str, dev, work_dir: Path, params_root: Path | None = None) 
         oracle = leakgan_train.LeakGanTrainer(
             leakgan_train.LeakGanTrainConfig(cfg=lcfg, batch_size=ltp["batch_size"]),
             seed=20, device=dev)
-        corpus = oracle.oracle_samples(512)
+        corpus = oracle.oracle_samples(256)
         np.save(work_dir / "corpus.npy", corpus)
         del oracle
         print(f"    (phase 20 at {time.perf_counter() - t_phase:.1f} s: the oracle corpus)",
@@ -735,16 +722,17 @@ def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = Non
     from music_tpu_torch.data import midi
     from music_tpu_torch.models import crnngan as cg
     from music_tpu_torch.train import crnngan_train as ct
-    from music_tpu_torch.utils.profiling import phase_fractions
+    from music_tpu_torch.utils.profiling import device_busy_share, phase_fractions
 
     params_root = params_root or ROOT / "music_tpu_torch" / "params"
+    n_songs = 16  # the corpus (32 until phase 24 took its time)
     if torch.backends.cuda.matmul.allow_tf32:
         fail("[21] TF32 matmuls are on: the C-RNN-GAN phase holds float32 parity")
     t_phase = time.perf_counter()
-    # a corpus of 32 songs from a seed, 2 genres x 2 composers (meta_dim 4),
+    # a corpus of 16 songs from a seed, 2 genres x 2 composers (meta_dim 4),
     # 120-200 notes each (the real corpus is not in the repository)
     rng = np.random.default_rng(21)
-    for i in range(32):
+    for i in range(n_songs):
         n = int(rng.integers(120, 201))
         events = np.stack([rng.choice([0, 48, 96, 192], n), rng.integers(48, 384, n),
                            [midi.tone_to_freq(t) for t in rng.integers(36, 96, n)],
@@ -785,9 +773,9 @@ def crnngan_phase(card: str, dev, work_dir: Path, params_root: Path | None = Non
     tr = records["CRnnGanTrainer"]
     pre_s, gan_s = records["CRnnGanTrainer.pre_step"], records["CRnnGanTrainer.gan_step"]
     steps = records["CRnnGanTrainer.gan_step out"]
-    if len(pre_s) != 32 // batch or len(gan_s) != cuts["num_epochs"] * 32 // batch:
+    if len(pre_s) != n_songs // batch or len(gan_s) != cuts["num_epochs"] * n_songs // batch:
         fail(f"[21] {len(pre_s)} pretrain and {len(gan_s)} GAN steps, want "
-             f"{32 // batch} and {cuts['num_epochs'] * 32 // batch}")
+             f"{n_songs // batch} and {cuts['num_epochs'] * n_songs // batch}")
     trained = sum(s.d_trained for s in steps)
     fm = sum(s.feature_matching for s in steps)
     ms = lambda xs: f"{1e3 * xs[0]:.1f} ms first, {1e3 * float(np.median(xs[1:])):.1f} median"
@@ -1033,6 +1021,94 @@ def training_phase(card: str, dev, config: str = "shipped", steps: int = CHORD_S
 
 MESH_STEPS = 3  # phase 23's trainer steps on the mesh and on one device, from one state
 MESH_TOL = 1e-5  # loss: relative; gradients: of each leaf's largest magnitude
+
+
+# the JAX scripts' keys of each GAN run's last line (benchmarks/*.py)
+GAN_RUN_KEYS = {
+    "crnngan_quality_run": {
+        "metric", "songs", "pretrain_loss", "gan_g_loss", "gan_d_loss", "d_real_acc",
+        "moment_distance_init", "moment_distance_after_pretrain", "moment_distance_final_epoch",
+        "moment_distance_best_ckpt", "best_ckpt_epoch", "eval_trajectory",
+        "conditioning_steers_generation", "generated_events_reparsed", "wall_s"},
+    "seqgan_quality_run": {
+        "metric", "init_oracle_nll", "mle_only_oracle_nll", "mle_best_oracle_nll",
+        "adv_best_oracle_nll", "adv_final_oracle_nll", "adv_beats_mle", "ln_vocab",
+        "mle_epochs", "adv_rounds", "corpus_size", "wall_s", "backend"},
+    "leakgan_oracle_run": {
+        "metric", "oracle_self_nll", "ln_vocab", "init_oracle_nll", "pretrain_oracle_nll",
+        "best_adv_oracle_nll", "final_adv_oracle_nll", "metric_range_nats", "schedule",
+        "wall_s", "backend"},
+}
+# each run's pass flag and its cut schedule (a few steps of each stage)
+GAN_RUNS = {
+    "crnngan_quality_run": ("conditioning_steers_generation",
+                            ["--songs", "4", "--pretrain", "1", "--epochs", "1",
+                             "--eval-every", "1"]),
+    "seqgan_quality_run": ("adv_beats_mle", ["--corpus", "128", "--mle-epochs", "1",
+                                             "--adv-rounds", "1", "--eval-every", "1"]),
+    "leakgan_oracle_run": ("adv_beats_pretrain", ["--corpus", "128", "--pre-g", "1",
+                                                  "--pre-d", "1", "--adv", "1",
+                                                  "--eval-every", "1"]),
+}
+
+
+def gan_runs_phase(card: str, dev, work_dir: Path, config: str = "shipped") -> float:
+    """[24] Each GAN quality run's ``main`` in process on ``dev`` at
+    ``config``'s widths with :data:`GAN_RUNS`' cut schedule: its last line
+    must hold the JAX script's keys (:data:`GAN_RUN_KEYS`), finite NLLs and
+    distances and, on the card, ``card``; its exit code must follow its pass
+    flag (which a cut schedule need not meet); the C-RNN-GAN run's ``.mid``
+    files must re-parse to the events it reports.  Returns the seconds.
+    ``gan_runs_phase(card, torch.device("cpu"), dir, config="tiny")``
+    rehearses it on the CPU."""
+    import contextlib
+    import importlib
+    import io
+    import math
+
+    from music_tpu_torch.data.midi import midi_to_song_data
+
+    t_phase = time.perf_counter()
+    for name, (flag, argv) in GAN_RUNS.items():
+        module = importlib.import_module(f"music_tpu_torch.runs.{name}")
+        out_dir = work_dir / name
+        stdout = io.StringIO()
+        with contextlib.redirect_stdout(stdout):
+            rc = module.main([*argv, "--config", config, "--device", dev.type,
+                              "--out", str(out_dir)])
+        out = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        missing = (GAN_RUN_KEYS[name] | {"device", "card"}) - set(out)
+        if missing:
+            fail(f"[24] {name}: its last line lacks {sorted(missing)}")
+        if rc != (0 if out[flag] else 1):
+            fail(f"[24] {name}: exit code {rc} with {flag} {out[flag]}")
+        if dev.type == "cuda" and out["card"] != card:
+            fail(f"[24] {name}: card {out['card']!r}, nvidia-smi says {card!r}")
+        numbers = [v for k, v in out.items() if k.endswith("_nll") or k == "metric_range_nats"]
+        for k, v in out.items():
+            if k.startswith("moment_distance"):
+                numbers += [v["within"], v["contrast"]]
+        if not numbers or not all(isinstance(v, float) and math.isfinite(v) for v in numbers):
+            fail(f"[24] {name}: NLLs or distances not finite: {out}")
+        if name == "crnngan_quality_run":
+            events = [len(midi_to_song_data(p)) for p in sorted(out_dir.glob("gen_*.mid"))]
+            if len(events) != 4 or sorted(events) != sorted(out["generated_events_reparsed"]) \
+                    or min(events) == 0:
+                fail(f"[24] {name}: the .mid files re-parse to {events} events, the run "
+                     f"reported {out['generated_events_reparsed']}")
+        steps = ", ".join(
+            f"{k} {v['ms']:.1f} ms" + (f" ({100 * v['busy_share']:.0f}% busy)"
+                                        if v["busy_share"] is not None else "")
+            for k, v in out["steps"].items())
+        results = (f"moment distances (best checkpoint) {out['moment_distance_best_ckpt']}, "
+                   f"events {out['generated_events_reparsed']}" if name == "crnngan_quality_run"
+                   else ", ".join(f"{k} {v}" for k, v in out.items() if k.endswith("_nll")))
+        print(f"[24] {name} ({config}, {' '.join(argv)}): {flag} {out[flag]}, {results}; "
+              f"phases {out['phase_s']} s; steps: {steps}; wall {out['wall_s']} s  [{card}]",
+              flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[24] the GAN runs phase took {seconds:.1f} s", flush=True)
+    return seconds
 
 
 def _leaf_error(ours: dict, ref: dict) -> float:
@@ -2867,21 +2943,29 @@ def main() -> None:
     reset_counts()
     meshed = mesh_phase(card, dev)
     main_path_launches["wavenet_decode"] += meshed["launched"]["wavenet_decode"]
+
+    # -- 24. the three GAN quality runs at the shipped widths, cut (no
+    # decode kernel on their paths)
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        gan_runs_phase(card, dev, Path(tmp))
+    if dec.LAUNCHES or aedec.LAUNCHES or hbm.LAUNCHES or aehbm.LAUNCHES:
+        fail("[24] the GAN runs launched a decode kernel")
     if "jax" in sys.modules or any(m == "music_tpu" or m.startswith("music_tpu.")
                                    for m in sys.modules):
         fail("jax or the JAX package was imported")
 
-    # -- 24. the kernels line (ms per decode step of one f32 stream: B1 and
+    # -- 25. the kernels line (ms per decode step of one f32 stream: B1 and
     # B3 at the shipped width, B2 and B4 at the scaled width; no single
-    # PyTorch call computes any of the decodes; phases 19-21 launch none of
-    # them, phase 22 one of B1, phase 23 two)
+    # PyTorch call computes any of the decodes; phases 19-21 and 24 launch
+    # none of them, phase 22 one of B1, phase 23 two)
     described = [
         ("wavenet_decode", "music_tpu/kernels/wavenet_decode.py:134", b1),
         ("wavenet_ae_decode", "music_tpu/kernels/wavenet_ae_decode.py:324", b3),
         ("wavenet_decode_hbm", "music_tpu/kernels/wavenet_decode_hbm.py:207", b2),
         ("wavenet_ae_decode_hbm", "music_tpu/kernels/wavenet_ae_decode_hbm.py:136", b4),
     ]
-    print(f"[24] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"[25] the whole run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -8,6 +8,8 @@
   shares of a training step (the reference's ``wavenet/test.py:44-69``
   breakdown), the device synchronised between phases.
 - :func:`time_fn`: the median wall-clock of a call, synchronised.
+- :func:`device_busy_share`: a call's wall seconds and the seconds the
+  card was busy during it.
 """
 
 from __future__ import annotations
@@ -113,3 +115,27 @@ def time_fn(fn: Callable, make_args: Callable[[int], tuple], n: int = 3) -> floa
         _sync()
         times.append(time.perf_counter() - t0)
     return float(np.median(times))
+
+
+def device_busy_share(dev: torch.device, fn: Callable) -> tuple[float, float, float | None]:
+    """``fn()``'s wall seconds (host clock, device synchronised), its device
+    busy seconds (the CUDA activities ``torch.profiler`` records over a
+    second call) and their ratio; ``(wall, 0.0, None)`` off the card, and a
+    ratio of ``None`` when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+
+    _sync()
+    t0 = time.perf_counter()
+    fn()
+    _sync()
+    wall = time.perf_counter() - t0
+    if dev.type != "cuda":
+        return wall, 0.0, None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    # the raw device events: summed in milliseconds, where building
+    # prof.events() takes seconds for a step of ~30k launches
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) * 1e-9
+    return wall, busy, (busy / wall if busy > 0 else None)

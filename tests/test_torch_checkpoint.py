@@ -14,6 +14,7 @@ from music_tpu.core import checkpoint as jckpt
 from music_tpu.models import wavenet as jwn
 from music_tpu.train.wavenet_train import TrainState
 from music_tpu_torch.core import checkpoint as tckpt
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = jwn.WaveNetConfig(
     dilations=(1, 2, 4, 8, 1, 2, 4, 8), dilation_channels=8, residual_channels=8,

@@ -10,6 +10,7 @@ import pytest
 
 from music_tpu.core import config as jconfig
 from music_tpu_torch.core import config as tconfig
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _schema(mod, **kw):

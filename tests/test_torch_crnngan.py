@@ -28,6 +28,7 @@ from music_tpu_torch.generate import crnngan_generate as tgen
 from music_tpu_torch.models import crnngan as tcg
 from music_tpu_torch.train import crnngan_train as ttrain
 from test_torch_seqgan import split_mesh
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # forwards, losses and gradients, float32 on both sides
 REL = 1e-5  # params and Adam state after one update, per leaf

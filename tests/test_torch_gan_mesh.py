@@ -53,6 +53,7 @@ from music_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 from music_tpu_torch.train import crnngan_train as tcgt
 from music_tpu_torch.train import seqgan_train as tsgt
 from test_torch_seqgan import gumbel, keep_mask, leaves_by_path
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 MESHES = [(2, 1, 1), (1, 1, 2), (2, 1, 2)]

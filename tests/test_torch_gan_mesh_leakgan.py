@@ -41,6 +41,7 @@ from test_torch_gan_mesh import (
     assert_resumed, run_beside,
 )
 from test_torch_seqgan import gumbel, keep_mask
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 LG_KW = dict(vocab_size=40, seq_len=10, step_size=5, goal_size=4, worker_emb_dim=8,
              worker_hidden=8, manager_hidden=8, dis_emb_dim=8, filter_sizes=(1, 2, 3),

@@ -45,6 +45,7 @@ from music_tpu_torch.models import seqgan as tsg
 from music_tpu_torch.parallel import gan_tp, launch, rnn_tp
 from music_tpu_torch.parallel.collectives import gather_from, sum_grads
 from music_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)

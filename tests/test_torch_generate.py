@@ -22,6 +22,7 @@ from music_tpu_torch.generate import wavenet_generate as tgen
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.ops.mulaw import mu_law_decode
 from music_tpu_torch.utils.parity import teacher_forced_scores, tie_aware_check
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY_JSON = dict(

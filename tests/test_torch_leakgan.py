@@ -26,6 +26,7 @@ from music_tpu_torch.train import leakgan_train as ttrain
 from test_torch_seqgan import (
     assert_same_tokens, assert_tree_close, gumbel, keep_mask, split_mesh,
 )
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 PORT = Path(__file__).resolve().parents[1] / "music_tpu_torch"
 ATOL = 1e-5  # forward pieces, engines, losses and rewards, float32 on both sides

@@ -7,6 +7,7 @@ import torch
 
 from music_tpu.ops import mulaw as jmulaw
 from music_tpu_torch.ops import mulaw as tmulaw
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_encode_bit_equal_dense_sweep():

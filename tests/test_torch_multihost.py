@@ -23,6 +23,7 @@ from music_tpu_torch.core import checkpoint as tck
 from music_tpu_torch.parallel import launch, multihost
 from music_tpu_torch.parallel.mesh import GROUPS, Mesh
 from music_tpu_torch.train import wavenet_train as ttrain
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TINY_WN = {"filter_width": 2, "dilations": [1, 2, 4, 8], "dilation_channels": 4,

@@ -15,6 +15,7 @@ from music_tpu_torch import native
 from music_tpu_torch.data import midi as tmidi
 from music_tpu_torch.data.audio import mu_law_encode_np
 from test_torch_port import REPO, _code_boundaries
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(kind: str, q: int) -> np.ndarray:

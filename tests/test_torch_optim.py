@@ -18,6 +18,7 @@ from music_tpu.train.wavenet_train import TrainState as JTrainState
 from music_tpu_torch.core import checkpoint as tck
 from music_tpu_torch.core import optim as toptim
 from music_tpu_torch.train.wavenet_train import TrainState
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-6  # updates and states are O(1e-2..1); both sides compute in float32
 

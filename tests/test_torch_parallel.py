@@ -19,6 +19,7 @@ from music_tpu_torch.parallel import launch
 from music_tpu_torch.parallel import mesh as tmesh
 from music_tpu_torch.parallel.collectives import all_gather, copy_to, pmean, reduce_from
 from music_tpu_torch.parallel.halo import left_halo_exchange
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 RESOLVE_CASES = [
     ((-1, 1, 1), 8), ((2, -1, 1), 8), ((2, 2, -1), 8), ((1, 1, 1), 1), ((-1, 2, 2), 4),

@@ -3,8 +3,12 @@ music_tpu, its copies of the JAX package's jax-free pieces (params JSONs,
 the µ-law table, the token-corpus, MIDI-scraper and loss-plot modules,
 JSON loading, wav I/O) equal the originals, its host
 µ-law encode matches the JAX package's, and its entry points run on CUDA
-unless the caller asks for the CPU."""
+unless the caller asks for the CPU.
 
+Also the home of :func:`one_torch_thread`, the module fixture every
+``test_torch_*`` file imports."""
+
+import os
 import re
 import subprocess
 import sys
@@ -31,6 +35,9 @@ from music_tpu_torch.ops.mulaw import mu_law_encode
 from music_tpu_torch.parallel import mesh as pmesh
 from music_tpu_torch.parallel import multihost
 from music_tpu_torch.runs import cli_journey_run as journey_run
+from music_tpu_torch.runs import crnngan_quality_run as crnngan_run
+from music_tpu_torch.runs import leakgan_oracle_run as leakgan_run
+from music_tpu_torch.runs import seqgan_quality_run as seqgan_run
 from music_tpu_torch.runs import wavenet_ae_quality_run as ae_run
 from music_tpu_torch.runs import wavenet_poly_quality_run as poly_run
 from music_tpu_torch.train import crnngan_train as cgtrain
@@ -40,6 +47,27 @@ from music_tpu_torch.train import wavenet_train as wtrain
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "music_tpu_torch"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one intra-op thread, and the
+    processes it starts with ``OMP_NUM_THREADS=1``; both restored after.
+    The suite runs in several worker processes on a host's cores, next to
+    the JAX tests' XLA threads; torch's default of one OpenMP thread a core
+    makes every parallel op wait at its barrier for threads that other
+    processes hold off their cores (a 4 s test took 151 s so).  Each
+    ``test_torch_*`` module imports this fixture, which takes effect there
+    by its ``autouse``."""
+    threads, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(threads)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 COPIES = sorted(
     str(p.relative_to(PORT))
     for p in [*PORT.glob("params/**/*.json"), *PORT.glob("ops/*.npy"),
@@ -73,7 +101,9 @@ def test_port_imports_nothing_of_jax_or_music_tpu():
     n = int(re.search(r"IMPORTED (\d+)", proc.stdout).group(1))
     assert n >= 20, proc.stdout  # every subpackage and module was reached
     for name in ("native", "runs.common", "runs.wavenet_poly_quality_run",
-                 "runs.wavenet_ae_quality_run", "runs.cli_journey_run"):
+                 "runs.wavenet_ae_quality_run", "runs.cli_journey_run",
+                 "runs.crnngan_quality_run", "runs.seqgan_quality_run",
+                 "runs.leakgan_oracle_run"):
         assert (PORT / f"{name.replace('.', '/')}.py").exists(), name  # walked above
 
 
@@ -220,6 +250,9 @@ ENTRY_POINTS = {
     "runs wavenet_poly_quality_run": lambda tmp: poly_run.main(["--out", str(tmp / "ck")]),
     "runs wavenet_ae_quality_run": lambda tmp: ae_run.main(["--out", str(tmp / "ck")]),
     "runs cli_journey_run": lambda tmp: journey_run.main(["--workdir", str(tmp / "ck")]),
+    "runs crnngan_quality_run": lambda tmp: crnngan_run.main(["--out", str(tmp / "ck")]),
+    "runs seqgan_quality_run": lambda tmp: seqgan_run.main(["--out", str(tmp / "ck")]),
+    "runs leakgan_oracle_run": lambda tmp: leakgan_run.main(["--out", str(tmp / "ck")]),
     "make_mesh": lambda tmp: pmesh.make_mesh(pmesh.MeshSpec()),
     "wavenet train(mesh)": lambda tmp: wtrain.train(
         wavenet_params={}, dataset_params={}, train_params={},

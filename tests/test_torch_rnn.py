@@ -19,6 +19,7 @@ from music_tpu_torch.core import checkpoint as tck
 from music_tpu_torch.core import optim as toptim
 from music_tpu_torch.core.prng import KeySeq
 from music_tpu_torch.ops import rnn as trnn
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # float32 forward pieces, O(1) values
 

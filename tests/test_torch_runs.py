@@ -23,6 +23,7 @@ from music_tpu_torch.generate.wavenet_generate import streams_weights
 from music_tpu_torch.kernels import wavenet_decode, wavenet_decode_hbm
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.runs import cli_journey_run, wavenet_ae_quality_run, wavenet_poly_quality_run
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 CARD_KEYS = {"device", "card", "wall_s"}
 POLY_KEYS = {"metric", "chord_hz", "corpus_peaks_hz", "generated_peaks_hz", "max_peak_error_hz",

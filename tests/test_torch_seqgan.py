@@ -24,6 +24,7 @@ from music_tpu_torch.models import seqgan as tsg
 from music_tpu_torch.parallel.mesh import GROUPS, Mesh, MeshSpec, make_mesh
 from music_tpu_torch.train import seqgan_train as ttrain
 from music_tpu_torch.utils.parity import tie_aware_check
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # forward pieces and rewards, float32 on both sides
 REL = 1e-5  # params and optimizer state after one update, per leaf

@@ -23,6 +23,7 @@ from music_tpu_torch.ops.mulaw import mu_law_encode
 from music_tpu_torch.utils.parity import (
     ae_teacher_forced_scores, teacher_forced_scores, tie_aware_check,
 )
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4  # f32 logits O(0.1): candidates may differ from the argmax by summation order only
 

@@ -22,6 +22,7 @@ from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.mulaw import mu_law_decode
 from music_tpu_torch.parallel import launch
 from music_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY = wn.WaveNetConfig(dilations=(1, 2, 4, 8, 1, 2, 4, 8), dilation_channels=8,
                         residual_channels=8, skip_channels=16, quantization_channels=32)

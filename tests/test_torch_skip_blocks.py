@@ -19,6 +19,7 @@ from music_tpu_torch.core import optim
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.train import wavenet_train as ttrain
 from test_wavenet_sharded import TINY, WL, _data
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 T_TINY = twn.WaveNetConfig(
     filter_width=TINY.filter_width, dilations=TINY.dilations,

@@ -35,6 +35,7 @@ from music_tpu_torch.generate import wavenet_generate as tgen
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.train import wavenet_ae_train as taetrain
 from music_tpu_torch.train import wavenet_train as ttrain
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 # losses are O(3.5) means over 8 x 32 positions; the JAX run reduces its
 # batch over 8 CPU devices, in another order than the port's one mean

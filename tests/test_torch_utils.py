@@ -21,6 +21,7 @@ from music_tpu_torch.data import midi as tmidi
 from music_tpu_torch.data import midi_scraper as tscraper
 from music_tpu_torch.utils import profiling
 from music_tpu_torch.utils import visualize as tvis
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def seeded_events(seed: int, n: int = 40) -> np.ndarray:

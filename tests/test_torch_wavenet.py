@@ -17,6 +17,7 @@ from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.ops import conv as tconv
 from music_tpu_torch.ops import sampling
 from music_tpu_torch.utils.parity import tie_aware_check
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_JSON = dict(
     filter_width=2, dilations=[1, 2, 4, 8, 1, 2, 4, 8], dilation_channels=8,

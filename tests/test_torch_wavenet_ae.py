@@ -13,6 +13,7 @@ import torch
 from music_tpu.models import wavenet_ae as jae
 from music_tpu_torch.models import wavenet_ae as tae
 from music_tpu_torch.utils.parity import tie_aware_check
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_JSON = dict(
     filter_width=2, dilations=[1, 2, 4, 8, 1, 2, 4, 8], en_residual_channel=8,

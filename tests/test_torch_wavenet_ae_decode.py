@@ -22,6 +22,7 @@ from music_tpu_torch.models import wavenet_ae as tae
 from music_tpu_torch.utils.parity import (
     ae_reference_scores, ae_teacher_forced_scores, tie_aware_check,
 )
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_JSON = dict(
     filter_width=2, dilations=[1, 2, 4, 8, 1, 2, 4, 8], en_residual_channel=8,

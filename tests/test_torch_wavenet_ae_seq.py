@@ -28,6 +28,7 @@ from music_tpu_torch.parallel.collectives import sum_grads
 from music_tpu_torch.parallel.mesh import MeshSpec, gather, make_mesh, shard_params
 from music_tpu_torch.parallel.multihost import host_shard, put_global_batch
 from music_tpu_torch.train import wavenet_ae_train as taetrain
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 CFG_JSON = {"filter_width": 2, "dilations": [1, 2, 4, 8, 1, 2, 4, 8],  # M = 30, RF = 32
             "en_residual_channel": 8, "en_dilation_channel": 8, "de_residual_channel": 8,

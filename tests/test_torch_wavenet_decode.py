@@ -19,6 +19,7 @@ from music_tpu_torch.kernels import wavenet_decode as tdec
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.ops import philox
 from music_tpu_torch.utils.parity import reference_scores, teacher_forced_scores, tie_aware_check
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_JSON = dict(
     filter_width=2, dilations=[1, 2, 4, 8, 1, 2, 4, 8], dilation_channels=8,

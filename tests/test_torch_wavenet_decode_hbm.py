@@ -23,6 +23,7 @@ from music_tpu.models import wavenet as jwn
 from music_tpu_torch.kernels import wavenet_decode_hbm as th
 from music_tpu_torch.models import wavenet as twn
 from music_tpu_torch.utils.parity import tie_aware_check, with_decode_noise
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 TINY_JSON = dict(
     filter_width=2, dilations=[1, 2, 4, 8, 1, 2, 4, 8], dilation_channels=8,

@@ -36,6 +36,7 @@ from music_tpu_torch.parallel.collectives import sharded_global_norm, sum_grads
 from music_tpu_torch.parallel.mesh import MeshSpec, gather, make_mesh, shard_params
 from music_tpu_torch.parallel.multihost import put_global_batch
 from music_tpu_torch.train import wavenet_train as ttrain
+from test_torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 CFG_JSON = {"filter_width": 2, "dilations": [1, 2, 4, 8, 1, 2, 4, 8], "dilation_channels": 4,
             "residual_channels": 4, "skip_channels": 8, "quantization_channels": 32,
