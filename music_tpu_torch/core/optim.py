@@ -27,6 +27,8 @@ from typing import Any, Callable, Mapping, NamedTuple
 
 import torch
 
+from music_tpu_torch.utils import profiling
+
 
 class OptimizerError(ValueError):
     pass
@@ -317,11 +319,13 @@ def grad_update(tx: GradientTransformation, params: Any, opt_state: Any,
     ``reduce_grads`` combines the gradients of ranks before the update
     (:func:`music_tpu_torch.parallel.collectives.sum_grads`)."""
     variables = live(params)
-    loss = loss_fn(variables)
-    grads = tree_grads(loss, variables)
+    with profiling.span("step.forward"):
+        loss = loss_fn(variables)
+    with profiling.span("step.backward"):
+        grads = tree_grads(loss, variables)
     if reduce_grads is not None:
         grads = reduce_grads(grads)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("step.update"):
         updates, opt_state = tx.update(grads, opt_state, params)
         params = apply_updates(params, updates)
     return params, opt_state, loss.detach()

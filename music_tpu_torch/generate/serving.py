@@ -36,6 +36,7 @@ from music_tpu_torch.models import wavenet as wn
 from music_tpu_torch.models import wavenet_ae as ae
 from music_tpu_torch.ops.conv import full_fp32
 from music_tpu_torch.ops.mulaw import mu_law_decode
+from music_tpu_torch.utils import profiling
 
 SEED_STRIDE = 7919  # the per-call seed advance, modulo 2**31
 
@@ -175,8 +176,9 @@ class DecodeSession:
         if not self._streams:
             return {}
         sids = list(self._streams)
-        rows = np.stack(_pad_rows([self._streams[s] for s in sids], self._rows))
-        prime = torch.from_numpy(rows).to(self.device)
+        with profiling.span("session.pack"):
+            rows = np.stack(_pad_rows([self._streams[s] for s in sids], self._rows))
+            prime = torch.from_numpy(rows).to(self.device)
         k = self.steps_per_call
         if self.backend == "fused":
             codes = wngen._fused_decode(self.params, prime, self.cfg, k, self.dtype,
@@ -186,11 +188,14 @@ class DecodeSession:
             codes = wngen._scan_decode(self.params, prime, self.cfg, k, self.sample_mode,
                                        self.temperature, self._seed)
         self._seed = (self._seed + SEED_STRIDE) % 2**31
-        out = codes.cpu().numpy()
+        with profiling.span("session.fetch"):
+            out = codes.cpu().numpy()
         result = {}
-        for i, sid in enumerate(sids):
-            result[sid] = out[i]
-            self._streams[sid] = np.concatenate([self._streams[sid], out[i]])[-self._prime_len:]
+        with profiling.span("session.tails"):
+            for i, sid in enumerate(sids):
+                result[sid] = out[i]
+                self._streams[sid] = np.concatenate(
+                    [self._streams[sid], out[i]])[-self._prime_len:]
         return result
 
     def audio(self, codes: np.ndarray) -> np.ndarray:

@@ -39,6 +39,7 @@ from music_tpu_torch.kernels import _build
 from music_tpu_torch.models.wavenet import WaveNetConfig, _gate, forward
 from music_tpu_torch.ops.conv import conv1x1, dilated_causal_conv, full_fp32, token_causal_conv
 from music_tpu_torch.ops.philox import decode_uniforms, gumbel
+from music_tpu_torch.utils import profiling
 
 SUPPORTED_STREAMS = (1, 2, 4, 8, 16)
 """Streams per thread block the kernel is compiled for."""
@@ -465,14 +466,16 @@ def generate_tokens_fused(
     B = prime.shape[0]
     kw = dict(cfg=cfg, n_steps=n_steps, dtype=dtype, sample_mode=sample_mode,
               temperature=temperature, seed=seed, row0=row0)
-    w, ring, s0, prev0 = prepare(
-        params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
-        dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed, row0=row0,
-    )
-    if prime.device.type == "cuda":
-        out = decode_cuda(w, ring, s0, prev0, n_streams=n_streams, **kw)
-    elif prime.device.type == "cpu":
-        out = decode_reference(w, ring, s0, prev0, **kw)
-    else:
-        raise ValueError(f"unsupported device {prime.device}")
+    with profiling.span("decode.prepare"):
+        w, ring, s0, prev0 = prepare(
+            params, prime, cfg=cfg, n_streams=n_streams, n_stream_groups=n_stream_groups,
+            dtype=dtype, sample_mode=sample_mode, temperature=temperature, seed=seed, row0=row0,
+        )
+    with profiling.span("decode.launch"):
+        if prime.device.type == "cuda":
+            out = decode_cuda(w, ring, s0, prev0, n_streams=n_streams, **kw)
+        elif prime.device.type == "cpu":
+            out = decode_reference(w, ring, s0, prev0, **kw)
+        else:
+            raise ValueError(f"unsupported device {prime.device}")
     return out[:B]

@@ -6,6 +6,7 @@ fetches through an injected ``fetch`` only, never the network."""
 
 import json
 import struct
+import time
 
 import numpy as np
 import pytest
@@ -254,13 +255,93 @@ def test_phase_fractions_sum_to_one():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    """``trace`` on the CPU writes a Chrome trace holding the annotated
-    span; ``time_fn`` gives a median of positive seconds."""
+    """``trace`` on the CPU writes a Chrome trace holding the program's
+    span beside the profiler's own events."""
     loss_fn, params, batch = _regression()
     with profiling.trace(tmp_path / "prof") as prof:
-        with profiling.annotate("regression_loss"):
+        with profiling.span("regression_loss"):
             loss_fn(params, batch)
     assert prof is not None
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
-    assert any(e.get("name") == "regression_loss" for e in events)
-    assert profiling.time_fn(loss_fn, lambda i: (params, batch + i), n=3) > 0
+    ours = [e for e in events if e.get("name") == "regression_loss"]
+    assert len(ours) == 1 and ours[0]["cat"] == "program_span" and ours[0]["dur"] > 0
+    assert any(e.get("cat") != "program_span" and e.get("ph") == "X" for e in events)
+
+
+def test_span_records_nothing_while_recording_is_off():
+    with profiling.recording():
+        pass
+    with profiling.span("off"):
+        pass
+    assert profiling.summary() == {}
+
+
+def test_span_nesting_parents_and_self_time():
+    """A child's host time is taken out of its parent's self time; each
+    span names the span that opened it."""
+    with profiling.recording():
+        with profiling.span("outer"):
+            time.sleep(0.002)
+            for _ in range(2):
+                with profiling.span("inner"):
+                    time.sleep(0.002)
+    s = profiling.summary()
+    assert (s["outer"]["count"], s["inner"]["count"]) == (1, 2)
+    assert s["outer"]["parents"] == [None] and s["inner"]["parents"] == ["outer"]
+    assert s["inner"]["host_ms"] >= 4.0 and s["outer"]["host_ms"] >= 6.0
+    assert s["outer"]["self_ms"] == pytest.approx(s["outer"]["host_ms"] - s["inner"]["host_ms"])
+    assert s["inner"]["self_ms"] == pytest.approx(s["inner"]["host_ms"])
+    (a, b), = s["outer"]["intervals"]
+    assert all(a <= c < d <= b for c, d in s["inner"]["intervals"])
+
+
+def test_summary_on_the_cpu_gives_device_ms_as_host_ms():
+    with profiling.recording():
+        with profiling.span("work"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    e = profiling.summary()["work"]
+    assert set(e) == {"count", "host_ms", "self_ms", "device_ms", "parents", "intervals"}
+    assert e["device_ms"] == e["host_ms"] == e["self_ms"] > 0
+    assert e["intervals"][0][1] - e["intervals"][0][0] == pytest.approx(e["host_ms"] * 1e6)
+
+
+def test_decode_session_step_records_its_spans_once_a_call():
+    """A session call on the CPU: the pack, the re-prime, the decode, the
+    codes' fetch and the tail loop, once each, in that order, at the top."""
+    from music_tpu_torch.generate.serving import DecodeSession
+    from music_tpu_torch.models import wavenet as wn
+
+    cfg = wn.WaveNetConfig(dilations=(1, 2, 1, 2), dilation_channels=4, residual_channels=4,
+                           skip_channels=8, quantization_channels=16)
+    params = wn.init_params(cfg, torch.Generator().manual_seed(0))
+    sess = DecodeSession(cfg, params, capacity=2, dtype=torch.float32, device="cpu",
+                         steps_per_call=3)
+    sess.add()
+    sess.add()
+    with profiling.recording():
+        for _ in range(2):
+            assert len(sess.step()) == 2
+    s = profiling.summary()
+    order = ["session.pack", "decode.prepare", "decode.launch", "session.fetch",
+             "session.tails"]
+    assert sorted(s) == sorted(order)
+    assert all(s[n]["count"] == 2 and s[n]["parents"] == [None] for n in order)
+    starts = [s[n]["intervals"][0][0] for n in order]
+    assert starts == sorted(starts)
+
+
+def test_grad_update_records_forward_backward_and_update_once():
+    loss_fn, params, batch = _regression()
+    tx = optim.adam(1e-3)
+    with profiling.recording():
+        optim.grad_update(tx, params, tx.init(params), lambda p: loss_fn(p, batch))
+    s = profiling.summary()
+    assert sorted(s) == ["step.backward", "step.forward", "step.update"]
+    assert all(e["count"] == 1 and e["parents"] == [None] for e in s.values())
+    assert (s["step.forward"]["intervals"][0][1] <= s["step.backward"]["intervals"][0][0]
+            and s["step.backward"]["intervals"][0][1] <= s["step.update"]["intervals"][0][0])
+
+
+def test_union_ns_counts_overlaps_once():
+    assert profiling.union_ns([(0, 10), (5, 15), (20, 30), (22, 25)]) == 25
+    assert profiling.union_ns([]) == 0
